@@ -1,0 +1,80 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each library is compiled by ``nvcc`` from ``feature_tracker_tpu_torch/csrc``
+into ``feature_tracker_tpu_torch/_build/`` (listed in ``.gitignore``). The
+file name carries a hash of the sources and flags, so a changed source is
+rebuilt and an unchanged one is loaded as it is. The library has a plain C
+interface and is loaded with ``ctypes``; nothing includes PyTorch's
+headers, so a build takes seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
+
+# sm_90a: Hopper. --fmad=false keeps every multiply and add rounded on its
+# own, as in the plain PyTorch versions (see the kernel sources).
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "--fmad=false",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under CUDA_HOME or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "from source at first use and need the CUDA toolkit")
+
+
+def library_path(name: str, sources) -> str:
+    """Build (if needed) and return the path of ``lib<name>-<hash>.so``.
+
+    ``sources`` are file names under ``csrc/``. The compiler's report
+    (registers, shared memory, spills from ``-Xptxas -v``) is kept beside
+    the library as ``<library>.log``."""
+    paths = [os.path.join(CSRC_DIR, s) for s in sources]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in paths:
+        with open(p, "rb") as fh:
+            digest.update(fh.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # Build under a temporary name and rename: concurrent builders never
+    # load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {name}:\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        with open(out + ".log", "w") as fh:
+            fh.write(proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str, sources: tuple) -> ctypes.CDLL:
+    """Build at first use and load the library once per process."""
+    return ctypes.CDLL(library_path(name, sources))

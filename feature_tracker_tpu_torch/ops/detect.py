@@ -1,0 +1,157 @@
+"""Shi-Tomasi / Harris corner detection.
+
+Pipeline (the JAX package's, step for step):
+  1. central-difference gradients, structure tensor box-filtered over a
+     (2w+1)^2 window (SAME zero padding, mean over k^2),
+  2. Shi-Tomasi response = min eigenvalue of the structure tensor,
+  3. 3x3 local-max NMS + response threshold,
+  4. top-K candidates by response, ties broken by the lower flat index
+     (``jax.lax.top_k``'s order; a stable descending sort gives it),
+  5. exact greedy radius suppression in score order.
+
+The output has a fixed size: ``max_num`` slots padded with (-1, -1), plus
+a count.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from feature_tracker_tpu_torch.core.config import HarrisOptions
+from feature_tracker_tpu_torch.core.device import resolve_device
+
+
+def _box_filter(a: torch.Tensor, half: int) -> torch.Tensor:
+    k = 2 * half + 1
+    h, w = a.shape
+    p = F.pad(a, (half, half, half, half))
+    rows = p[:, 0:w]
+    for d in range(1, k):
+        rows = rows + p[:, d:d + w]
+    win = rows[0:h]
+    for d in range(1, k):
+        win = win + rows[d:d + h]
+    return win / float(k * k)
+
+
+def shi_tomasi_response(img: torch.Tensor, window_half_size: int = 1):
+    """Min-eigenvalue corner response map ``[H, W]``."""
+    dx = torch.zeros_like(img)
+    dy = torch.zeros_like(img)
+    dx[:, 1:-1] = 0.5 * (img[:, 2:] - img[:, :-2])
+    dy[1:-1, :] = 0.5 * (img[2:, :] - img[:-2, :])
+    ixx = _box_filter(dx * dx, window_half_size)
+    iyy = _box_filter(dy * dy, window_half_size)
+    ixy = _box_filter(dx * dy, window_half_size)
+    tr = ixx + iyy
+    d = torch.sqrt((ixx - iyy) * (ixx - iyy) + 4.0 * ixy * ixy)
+    return 0.5 * (tr - d)
+
+
+def _chaotic_greedy(valid: torch.Tensor, higher_f: torch.Tensor):
+    """Chaotic iteration of the greedy recurrence: a candidate is decided
+    once every higher-ranked conflicting candidate is decided, so whole
+    independent groups resolve per round. Invalid candidates start
+    decided (never kept), so rounds = depth of the chains among valid
+    ones. The counts come from a float32 matmul of 0/1 values: exact
+    integers, TF32 or not."""
+    decided = ~valid
+    keep = torch.zeros_like(valid)
+    while not bool(decided.all()):
+        rhs = torch.stack([keep.to(higher_f.dtype),
+                           (~decided).to(higher_f.dtype)], dim=-1)
+        counts = higher_f @ rhs
+        blocked = counts[:, 0] > 0.0
+        ready = counts[:, 1] == 0.0
+        keep = torch.where(decided, keep, valid & ~blocked & ready)
+        decided = decided | ready
+    return keep
+
+
+def greedy_suppression(valid: torch.Tensor, conflict: torch.Tensor,
+                       chunk: int = 512) -> torch.Tensor:
+    """Exact greedy radius suppression in rank order.
+
+    Equivalent to the sequential scan ``keep[i] = valid[i] and no kept
+    j < i conflicts with i``. Candidates go in score-ordered chunks:
+    suppression from decided chunks is one masked matvec, and each chunk
+    resolves internally by chaotic iteration.
+
+    Args:
+      valid: ``[K]`` bool, candidates in descending score order.
+      conflict: ``[K, K]`` bool symmetric conflict matrix (self included).
+    """
+    k = valid.shape[0]
+    chunk = max(1, min(chunk, k))
+    keep = torch.zeros_like(valid)
+    for c0 in range(0, k, chunk):
+        c1 = min(c0 + chunk, k)
+        block = conflict[c0:c1]
+        sub_valid = valid[c0:c1]
+        if c0 > 0:
+            prev = block[:, :c0].to(torch.float32)
+            sub_valid = sub_valid & (prev @ keep[:c0].to(torch.float32) == 0.0)
+        n = c1 - c0
+        tri = torch.ones(n, n, dtype=torch.bool,
+                         device=valid.device).tril(diagonal=-1)
+        higher = (block[:, c0:c1] & tri).to(torch.float32)
+        keep[c0:c1] = _chaotic_greedy(sub_valid, higher)
+    return keep
+
+
+def detect_good_features(img, max_num: int,
+                         opts: HarrisOptions = HarrisOptions(),
+                         device="cuda"):
+    """Detect up to ``max_num`` corners with min-distance suppression.
+
+    Args:
+      img: ``[H, W]`` image (0..255 gray values), numpy or tensor.
+      max_num: maximum number of returned features.
+      opts: detection options.
+      device: where detection runs.
+
+    Returns:
+      (uv ``[max_num, 2]`` float32 (x, y), padded entries (-1, -1);
+       num: int32 0-dim tensor, the count of valid features).
+    """
+    dev = resolve_device(device)
+    img = torch.as_tensor(img, dtype=torch.float32, device=dev)
+    h, w = img.shape
+    resp = shi_tomasi_response(img, opts.window_half_size)
+
+    # Exclude a border so every detected feature has full bilinear support.
+    border = opts.window_half_size + 2
+    rows = torch.arange(h, device=dev)[:, None]
+    cols = torch.arange(w, device=dev)[None, :]
+    in_border = ((rows >= border) & (rows < h - border)
+                 & (cols >= border) & (cols < w - border))
+
+    # 3x3 local maxima (max_pool2d pads with -inf, as reduce_window does).
+    local_max = F.max_pool2d(resp[None, None], 3, stride=1, padding=1)[0, 0]
+    cand = (resp >= local_max) & (resp > opts.min_valid_response) & in_border
+    scores = torch.where(cand, resp, torch.full_like(resp, -torch.inf))
+
+    k = min(opts.max_candidates, h * w)
+    top_scores, flat_idx = torch.sort(scores.reshape(-1), descending=True,
+                                      stable=True)
+    top_scores, flat_idx = top_scores[:k], flat_idx[:k]
+    # Valid candidates form a prefix (invalid ones score -inf); the greedy
+    # pass only needs that prefix.
+    n_valid = int((top_scores > -torch.inf).sum())
+    cy = (flat_idx[:n_valid] // w).to(torch.float32)
+    cx = (flat_idx[:n_valid] % w).to(torch.float32)
+
+    # Greedy min-distance suppression in descending score order.
+    d2 = ((cx[:, None] - cx[None, :]) ** 2 + (cy[:, None] - cy[None, :]) ** 2)
+    min_d2 = float(opts.min_feature_distance) ** 2
+    conflict = d2 < min_d2  # includes self
+    keep = greedy_suppression(
+        torch.ones(n_valid, dtype=torch.bool, device=dev), conflict)
+
+    sel = torch.nonzero(keep).reshape(-1)[:max_num]
+    uv = torch.full((max_num, 2), -1.0, dtype=torch.float32, device=dev)
+    uv[:sel.shape[0], 0] = cx[sel]
+    uv[:sel.shape[0], 1] = cy[sel]
+    num = torch.tensor(sel.shape[0], dtype=torch.int32, device=dev)
+    return uv, num

@@ -1,0 +1,163 @@
+"""CPU parity of the port's image ops with the JAX package.
+
+The same numpy inputs (made from a seed) go through the JAX function and
+its counterpart in feature_tracker_tpu_torch, on the CPU.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from feature_tracker_tpu.core.config import HarrisOptions as JaxHarris
+from feature_tracker_tpu.ops import detect as jax_detect
+from feature_tracker_tpu.ops import solve as jax_solve
+from feature_tracker_tpu.ops import window as jax_window
+from feature_tracker_tpu.ops.pyramid import build_pyramid as jax_pyramid
+from feature_tracker_tpu_torch.core.config import HarrisOptions
+from feature_tracker_tpu_torch.ops import detect, solve, window
+from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
+
+from synthetic import translated_pair
+
+
+@pytest.mark.parametrize("shape,levels", [((120, 160), 4), ((67, 91), 3),
+                                          ((33, 50), 1)])
+def test_pyramid_levels_bit_equal(shape, levels):
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, shape).astype(np.float32)
+    want = jax_pyramid(jnp.asarray(img), levels)
+    got = build_pyramid(img, levels, device="cpu")
+    assert len(got) == levels
+    for a, b in zip(want, got):
+        assert b.dtype == torch.float32
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_pyramid_floors_non_integer_input_and_batches():
+    ref, cur = translated_pair(h=60, w=80)
+    want = jax_pyramid(jnp.asarray(ref), 3)
+    got = build_pyramid(np.stack([ref, cur]), 3, device="cpu")
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(a), b[0].numpy())
+        assert torch.equal(b, torch.floor(b))
+    unq = build_pyramid(ref, 2, quantize=False, device="cpu")
+    np.testing.assert_array_equal(unq[0].numpy(), ref)
+
+
+def test_pyramid_warns_on_normalized_input():
+    img = np.random.default_rng(1).uniform(0, 1, (16, 16)).astype(np.float32)
+    with pytest.warns(UserWarning, match="normalized"):
+        build_pyramid(img, 2, device="cpu")
+
+
+def test_default_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_pyramid(np.zeros((8, 8), np.float32), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        detect.detect_good_features(np.zeros((8, 8), np.float32), 4)
+
+
+def test_solve2x2_matches_jax():
+    rng = np.random.default_rng(2)
+    a = rng.normal(size=(5, 64)).astype(np.float32)
+    h00, h11 = a[0] ** 2 + 1, a[1] ** 2 + 1
+    want = np.stack([np.asarray(jax_solve.solve2x2(*(jnp.asarray(x[i])
+                                                     for x in (h00, a[2],
+                                                               h11, a[3],
+                                                               a[4]))))
+                     for i in range(64)])
+    got = solve.solve2x2(*(torch.from_numpy(x)
+                           for x in (h00, a[2], h11, a[3], a[4])))
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+def test_window_ops_match_jax():
+    """Batched gather (with the anchor clip far off-image), constant
+    weights and tap validity, against the JAX per-feature functions."""
+    rng = np.random.default_rng(3)
+    img = rng.integers(0, 256, (40, 56)).astype(np.float32)
+    pad, win = 18, 16
+    uv = np.concatenate([rng.uniform(-5, 60, (20, 2)),
+                         [[-400.0, 20.0], [30.0, 900.0], [-0.5, -0.5]]]
+                        ).astype(np.float32)
+    jpad = jax_window.pad_image(jnp.asarray(img), pad)
+    tpad = window.pad_image(torch.from_numpy(img), pad)
+    np.testing.assert_array_equal(np.asarray(jpad), tpad.numpy())
+
+    r0, c0, w = window.const_weights(torch.from_numpy(uv))
+    blocks = window.slice_window(tpad, pad, r0 - 7, c0 - 7, win)
+    valid = window.tap_validity(img.shape, r0 - 7, c0 - 7, 15, 15)
+    for k in range(len(uv)):
+        jr, jc, jw = jax_window.const_weights(jnp.asarray(uv[k]))
+        assert (int(jr), int(jc)) == (int(r0[k]), int(c0[k]))
+        np.testing.assert_array_equal(np.asarray(jw),
+                                      [float(x[k]) for x in w])
+        jb = jax_window.slice_window(jpad, pad, jr - 7, jc - 7, win)
+        np.testing.assert_array_equal(np.asarray(jb), blocks[k].numpy())
+        jv = jax_window.tap_validity(img.shape, jr - 7, jc - 7, 15, 15)
+        np.testing.assert_array_equal(np.asarray(jv), valid[k].numpy())
+
+
+def test_shi_tomasi_response_matches_jax():
+    ref, _ = translated_pair(h=120, w=160)
+    for half in (1, 2):
+        want = np.asarray(jax_detect.shi_tomasi_response(jnp.asarray(ref),
+                                                         half))
+        got = detect.shi_tomasi_response(torch.from_numpy(ref), half)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def _tied_image():
+    """Integer image of repeated identical blobs: many exactly tied
+    responses, so top-K order decides which candidates win."""
+    img = np.zeros((96, 128), np.float32)
+    for y in range(10, 90, 16):
+        for x in range(10, 120, 16):
+            img[y:y + 5, x:x + 5] = 200.0
+    return img
+
+
+@pytest.mark.parametrize("case", ["translated_pair", "tied"])
+def test_detect_good_features_identical(case):
+    if case == "tied":
+        img = _tied_image()
+        opts = dict(min_feature_distance=12, min_valid_response=10.0)
+        max_num = 40
+    else:
+        img, _ = translated_pair(h=120, w=160)
+        opts = dict(min_feature_distance=10, min_valid_response=20.0)
+        max_num = 100
+    juv, jnum = jax_detect.detect_good_features(jnp.asarray(img), max_num,
+                                                JaxHarris(**opts))
+    tuv, tnum = detect.detect_good_features(img, max_num,
+                                            HarrisOptions(**opts),
+                                            device="cpu")
+    assert tnum.dtype == torch.int32 and tuv.shape == (max_num, 2)
+    assert int(tnum) == int(jnum) > 10
+    np.testing.assert_array_equal(tuv.numpy(), np.asarray(juv))
+    if case == "tied":
+        resp = detect.shi_tomasi_response(torch.from_numpy(img))
+        sel = tuv[:int(tnum)].long()
+        scores = resp[sel[:, 1], sel[:, 0]]
+        assert len(torch.unique(scores)) < int(tnum)  # ties were decided
+
+
+def test_greedy_suppression_is_the_sequential_scan():
+    rng = np.random.default_rng(4)
+    k = 700
+    xy = rng.uniform(0, 60, (k, 2))
+    d2 = ((xy[:, None] - xy[None]) ** 2).sum(-1)
+    conflict = d2 < 16.0
+    valid = rng.uniform(size=k) < 0.9
+    want = np.zeros(k, bool)
+    for i in range(k):
+        want[i] = valid[i] and not (conflict[i, :i] & want[:i]).any()
+    got = detect.greedy_suppression(torch.from_numpy(valid),
+                                    torch.from_numpy(conflict), chunk=128)
+    np.testing.assert_array_equal(got.numpy(), want)
+    jgot = jax_detect.greedy_suppression(jnp.asarray(valid),
+                                         jnp.asarray(conflict), chunk=128)
+    np.testing.assert_array_equal(np.asarray(jgot), want)
