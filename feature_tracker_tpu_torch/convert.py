@@ -1,10 +1,11 @@
 """Carry state across from the JAX package, without importing it.
 
-The KLT front end has no learned weights, so what crosses is options and
-the front end's track state:
+The KLT trackers have no learned weights, so what crosses is options, a
+tracker's warp predictions and the front end's track state:
 
   opts = options_from_jax(jax_front_end.cfg)        # FrontEndConfig
-  fe = TrackingFrontEnd(opts, device="cuda")
+  tracker = tracker_from_jax(jax_front_end.tracker, device="cuda")
+  fe = TrackingFrontEnd(opts, tracker=tracker, device="cuda")
   fe.load_state_dict(front_end_state_from_jax(jax_front_end))
 
 Objects are matched by dataclass name and field names; arrays cross as
@@ -25,6 +26,11 @@ from feature_tracker_tpu_torch.core.config import (
     PyramidOptions,
 )
 from feature_tracker_tpu_torch.pipeline import FrontEndConfig
+from feature_tracker_tpu_torch.trackers.klt import (
+    AffineKlt,
+    BasicKlt,
+    LssdKlt,
+)
 
 _PORT_CONFIGS = {cls.__name__: cls for cls in
                  (KltOptions, HarrisOptions, PyramidOptions, FrontEndConfig)}
@@ -51,6 +57,29 @@ def options_from_jax(obj):
                          f"{sorted(theirs - ours)}, only in the port "
                          f"{sorted(ours - theirs)}")
     return cls(**{f: options_from_jax(getattr(obj, f)) for f in theirs})
+
+
+def tracker_from_jax(jax_tracker, device="cuda"):
+    """The port's ``BasicKlt`` / ``AffineKlt`` / ``LssdKlt`` for a JAX
+    tracker, matched by class name: its options, its ``predict_affine`` or
+    ``predict_rotation`` (as numpy) and ``consider_patch_luminance``."""
+    name = type(jax_tracker).__name__
+    if name not in ("BasicKlt", "AffineKlt", "LssdKlt"):
+        raise TypeError(
+            f"no port counterpart for tracker {type(jax_tracker)!r}")
+    opts = options_from_jax(jax_tracker.options)
+    if name == "BasicKlt":
+        return BasicKlt(opts, device=device)
+    if name == "AffineKlt":
+        tracker = AffineKlt(opts, device=device)
+        tracker.predict_affine = np.array(jax_tracker.predict_affine,
+                                          np.float32)
+        return tracker
+    tracker = LssdKlt(opts, bool(jax_tracker.consider_patch_luminance),
+                      device=device)
+    tracker.predict_rotation = np.array(jax_tracker.predict_rotation,
+                                        np.float32)
+    return tracker
 
 
 def front_end_state_from_jax(front_end) -> dict:

@@ -50,65 +50,11 @@
 // per-pixel arithmetic (bilinear weights and taps, det, the solve) rounds
 // the same way here, and only the order of the sums differs.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#define FTK_MAX_LEVELS 8
+#include "klt_common.cuh"
 
 namespace {
 
-enum : int {
-  kNotTracked = 0,
-  kTracked = 1,
-  kLargeResidual = 2,
-  kOutside = 3,
-  kNumericError = 4,
-};
-
-struct Pyramids {
-  const float* ref[FTK_MAX_LEVELS];
-  const float* cur[FTK_MAX_LEVELS];
-  int h[FTK_MAX_LEVELS];
-  int w[FTK_MAX_LEVELS];
-  int levels;
-};
-
-struct Options {
-  int pr, pc;  // patch rows / cols (odd)
-  int max_iterations;
-  int max_tolerance_large_step;
-  float max_converge_step;  // compared against the squared step
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Integer anchor of a floored coordinate. Clamped far beyond any image, so
-// every tap of a far-off feature is invalid and no index overflows.
-__device__ __forceinline__ int anchor(float floored) {
-  return (int)fminf(fmaxf(floored, -1073741824.0f), 1073741824.0f);
-}
-
-__device__ __forceinline__ bool tap_valid(int r, int c, int h, int w) {
-  return r >= 0 && r <= h - 2 && c >= 0 && c <= w - 2;
-}
-
-__device__ __forceinline__ float sample(const float* img, int w, int r,
-                                        int c, float wtl, float wtr,
-                                        float wbl, float wbr) {
-  const float* q = img + (size_t)r * w + c;
-  return wtl * q[0] + wtr * q[1] + wbl * q[w] + wbr * q[w + 1];
-}
+using namespace ftk;
 
 __global__ void klt_fast_pyramid_kernel(Pyramids pyr, Options opt,
                                         const float* __restrict__ ref_uv,
@@ -151,35 +97,15 @@ __global__ void klt_fast_pyramid_kernel(Pyramids pyr, Options opt,
     const int h = pyr.h[lvl], w = pyr.w[lvl];
 
     // Reference setup: extended patch, gradients, H.
-    const float ry0 = floorf(ry), rx0 = floorf(rx);
-    const float fr = ry - ry0, fc = rx - rx0;
-    const float wtl = (1.0f - fr) * (1.0f - fc), wtr = (1.0f - fr) * fc;
-    const float wbl = fr * (1.0f - fc), wbr = fr * fc;
-    const int min_r = anchor(ry0) - epr / 2, min_c = anchor(rx0) - epc / 2;
-    int n_ref = 0;
-    for (int p = lane; p < ex_n; p += 32) {
-      const int i = p / epc, j = p - i * epc;
-      const int r = min_r + i, c = min_c + j;
-      float v = 0.0f;
-      if (tap_valid(r, c, h, w)) {
-        v = sample(R, w, r, c, wtl, wtr, wbl, wbr);
-        ++n_ref;
-      }
-      ex[p] = v;
-    }
+    const Anchor ra = make_anchor(rx, ry);
+    const int min_r = ra.r - epr / 2, min_c = ra.c - epc / 2;
+    int n_ref = load_extended_patch(R, h, w, ra, epr, epc, lane, ex);
     __syncwarp();
     float h00 = 0.0f, h01 = 0.0f, h11 = 0.0f;
     for (int p = lane; p < p_n; p += 32) {
       const int i = p / pc, j = p - i * pc;
-      // Tap of inner pixel (i, j): its four neighbours are all valid iff
-      // it lies in [1, dim-3] in both directions.
-      const int r = min_r + i + 1, c = min_c + j + 1;
-      float dx = 0.0f, dy = 0.0f;
-      if (r >= 1 && r <= h - 3 && c >= 1 && c <= w - 3) {
-        const float* e = ex + (i + 1) * epc + (j + 1);
-        dx = e[1] - e[-1];
-        dy = e[epc] - e[-epc];
-      }
+      float dx, dy;
+      inner_gradient(ex, epc, min_r, min_c, i, j, h, w, &dx, &dy);
       gx[p] = dx;
       gy[p] = dy;
       h00 += dx * dx;
@@ -194,16 +120,10 @@ __global__ void klt_fast_pyramid_kernel(Pyramids pyr, Options opt,
 
     status = n_ref == 0 ? kOutside : kLargeResidual;
     if (n_ref > 0) {
-      float last_sq = INFINITY;
-      int cnt = 0;
+      FastBreaks breaks;
       for (int it = 0; it < opt.max_iterations; ++it) {
-        const float cy0 = floorf(cy), cx0 = floorf(cx);
-        const float cfr = cy - cy0, cfc = cx - cx0;
-        const float ctl = (1.0f - cfr) * (1.0f - cfc);
-        const float ctr = (1.0f - cfr) * cfc;
-        const float cbl = cfr * (1.0f - cfc), cbr = cfr * cfc;
-        const int cmin_r = anchor(cy0) - pr / 2;
-        const int cmin_c = anchor(cx0) - pc / 2;
+        const Anchor ca = make_anchor(cx, cy);
+        const int cmin_r = ca.r - pr / 2, cmin_c = ca.c - pc / 2;
         float b0 = 0.0f, b1 = 0.0f;
         int n_valid = 0;
         for (int p = lane; p < p_n; p += 32) {
@@ -211,7 +131,8 @@ __global__ void klt_fast_pyramid_kernel(Pyramids pyr, Options opt,
           const int r = cmin_r + i, c = cmin_c + j;
           if (tap_valid(r, c, h, w) &&
               tap_valid(min_r + i + 1, min_c + j + 1, h, w)) {
-            const float cur = sample(C, w, r, c, ctl, ctr, cbl, cbr);
+            const float cur =
+                sample(C, w, r, c, ca.wtl, ca.wtr, ca.wbl, ca.wbr);
             const float dt = cur - ex[(i + 1) * epc + (j + 1)];
             b0 += gx[p] * dt;
             b1 += gy[p] * dt;
@@ -231,18 +152,10 @@ __global__ void klt_fast_pyramid_kernel(Pyramids pyr, Options opt,
         }
         cx = cx + v0;
         cy = cy + v1;
-        const float sq = v0 * v0 + v1 * v1;
-        if (sq < last_sq) {
-          last_sq = sq;
-          cnt = 0;
-        } else {
-          ++cnt;
-        }
-        if (cnt >= opt.max_tolerance_large_step) break;
-        if (sq < opt.max_converge_step) {
-          status = kTracked;
+        if (breaks.after_update(v0 * v0 + v1 * v1,
+                                opt.max_tolerance_large_step,
+                                opt.max_converge_step, &status))
           break;
-        }
       }
     }
     if (lvl > 0) {
@@ -274,40 +187,23 @@ int ftk_klt_fast_pyramid(const void* const* ref_levels,
                          int patch_col_half_size, int max_iterations,
                          int max_tolerance_large_step,
                          float max_converge_step, void* stream) {
-  if (levels < 1 || levels > FTK_MAX_LEVELS || n < 0 ||
-      patch_row_half_size < 0 || patch_col_half_size < 0)
+  Pyramids pyr;
+  Options opt;
+  if (n < 0 ||
+      !fill_pyramids(&pyr, ref_levels, cur_levels, heights, widths, levels) ||
+      !fill_options(&opt, patch_row_half_size, patch_col_half_size,
+                    max_iterations, max_tolerance_large_step,
+                    max_converge_step))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
-  Pyramids pyr;
-  for (int l = 0; l < FTK_MAX_LEVELS; ++l) {
-    const bool on = l < levels;
-    pyr.ref[l] = on ? (const float*)ref_levels[l] : nullptr;
-    pyr.cur[l] = on ? (const float*)cur_levels[l] : nullptr;
-    pyr.h[l] = on ? heights[l] : 0;
-    pyr.w[l] = on ? widths[l] : 0;
-  }
-  pyr.levels = levels;
-  Options opt;
-  opt.pr = 2 * patch_row_half_size + 1;
-  opt.pc = 2 * patch_col_half_size + 1;
-  opt.max_iterations = max_iterations;
-  opt.max_tolerance_large_step = max_tolerance_large_step;
-  opt.max_converge_step = max_converge_step;
 
   const size_t per_warp =
       sizeof(float) * ((size_t)(opt.pr + 2) * (opt.pc + 2) +
                        2 * (size_t)opt.pr * opt.pc);
-  const size_t default_smem = 48 * 1024, max_smem = 227 * 1024;
-  if (per_warp > max_smem) return (int)cudaErrorInvalidValue;
-  int warps = (int)(default_smem / per_warp);
-  warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
-  const size_t smem = per_warp * warps;
-  if (smem > default_smem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        klt_fast_pyramid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int warps;
+  size_t smem;
+  cudaError_t e = plan_block(klt_fast_pyramid_kernel, per_warp, &warps, &smem);
+  if (e != cudaSuccess) return (int)e;
   const int blocks = (n + warps - 1) / warps;
   klt_fast_pyramid_kernel<<<blocks, 32 * warps, smem,
                             (cudaStream_t)stream>>>(
@@ -316,8 +212,6 @@ int ftk_klt_fast_pyramid(const void* const* ref_levels,
   return (int)cudaGetLastError();
 }
 
-const char* ftk_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 }  // extern "C"
+
+FTK_DEFINE_ERROR_STRING

@@ -2,16 +2,19 @@
 
 Each library is compiled by ``nvcc`` from ``feature_tracker_tpu_torch/csrc``
 into ``feature_tracker_tpu_torch/_build/`` (listed in ``.gitignore``). The
-file name carries a hash of the sources and flags, so a changed source is
-rebuilt and an unchanged one is loaded as it is. The library has a plain C
+file name carries a hash of the sources, of every header under ``csrc/``
+and of the flags, so a changed source or header is rebuilt and an unchanged
+one is loaded as it is. The library has a plain C
 interface and is loaded with ``ctypes``; nothing includes PyTorch's
 headers, so a build takes seconds.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
+import glob
 import hashlib
 import os
 import shutil
@@ -47,8 +50,9 @@ def library_path(name: str, sources) -> str:
     (registers, shared memory, spills from ``-Xptxas -v``) is kept beside
     the library as ``<library>.log``."""
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as fh:
             digest.update(fh.read())
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
@@ -72,6 +76,15 @@ def library_path(name: str, sources) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_libraries(specs) -> list:
+    """Build several libraries at once, one ``nvcc`` process each, all
+    started together. ``specs`` is a sequence of ``(name, sources)``;
+    returns their paths in order."""
+    specs = list(specs)
+    with concurrent.futures.ThreadPoolExecutor(len(specs) or 1) as pool:
+        return list(pool.map(lambda spec: library_path(*spec), specs))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,102 +1,153 @@
-"""CUDA kernel for the basic-KLT fast-mode tracker, whole pyramid in one
-launch — the counterpart of ``feature_tracker_tpu/ops/pallas_klt.py``.
+"""CUDA kernels for the basic-KLT tracker, whole pyramid in one launch —
+the counterpart of ``feature_tracker_tpu/ops/pallas_klt.py``.
 
-The kernel (``csrc/klt_fast.cu``) runs one warp per feature through the
-entire coarse-to-fine Gauss-Newton loop; its header states what it
-computes, its bound on an H100 and its design. It is built by ``nvcc`` at
-first use (``ops/_build.py``) and called through ``ctypes`` on PyTorch's
-current stream.
+``csrc/klt_fast.cu`` (FAST mode) and ``csrc/klt_iter.cu`` (DIRECT and
+INVERSE) each run one warp per feature through the entire coarse-to-fine
+Gauss-Newton loop; their headers state what they compute, their bound on
+an H100 and their design. They are built by ``nvcc`` at first use
+(``ops/_build.py``) and called through ``ctypes`` on PyTorch's current
+stream.
 
-:func:`track_pyramid_fast_cuda` dispatches by the tensors' device: CPU
-tensors take the plain PyTorch version
-(``trackers/klt/basic.py::track_pyramid_fast_reference``), CUDA tensors
-the kernel. A CUDA input the kernel cannot take raises; there is no
-fallback.
+:func:`track_pyramid_fast_cuda` and :func:`track_pyramid_iter_cuda`
+dispatch by the tensors' device: CPU tensors take the plain PyTorch
+versions (``trackers/klt/basic.py``), CUDA tensors the kernels. A CUDA
+input a kernel cannot take raises; there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from feature_tracker_tpu_torch.core.config import KltOptions
+from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
 from feature_tracker_tpu_torch.ops._build import load_library
 
-MAX_LEVELS = 8  # FTK_MAX_LEVELS in csrc/klt_fast.cu
-_SOURCES = ("klt_fast.cu",)
+MAX_LEVELS = 8  # FTK_MAX_LEVELS in csrc/klt_common.cuh
+FAST_LIBRARY = ("ftk_klt_fast", ("klt_fast.cu",))
+ITER_LIBRARY = ("ftk_klt_iter", ("klt_iter.cu",))
+
+_VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def load_klt_library() -> ctypes.CDLL:
-    """Build (at first use) and load the kernel's library."""
-    lib = load_library("ftk_klt_fast", _SOURCES)
-    fn = lib.ftk_klt_fast_pyramid
-    vp = ctypes.c_void_p
-    fn.argtypes = [vp, vp, vp, vp, ctypes.c_int, vp, vp, vp, vp, vp,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, vp]
+def bind(library, function: str, argtypes) -> ctypes.CDLL:
+    """Build (at first use) and load ``library = (name, sources)``, and
+    declare ``function``'s C signature (it returns a cudaError)."""
+    lib = load_library(*library)
+    fn = getattr(lib, function)
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     lib.ftk_cuda_error_string.argtypes = [ctypes.c_int]
     lib.ftk_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(cond: bool, msg: str) -> None:
+@functools.lru_cache(maxsize=None)
+def load_klt_library() -> ctypes.CDLL:
+    """Build (at first use) and load the FAST kernel's library."""
+    return bind(FAST_LIBRARY, "ftk_klt_fast_pyramid",
+                [_VP] * 4 + [_INT] + [_VP] * 5 + [_INT] * 5 + [_FLOAT, _VP])
+
+
+@functools.lru_cache(maxsize=None)
+def load_klt_iter_library() -> ctypes.CDLL:
+    """Build (at first use) and load the DIRECT / INVERSE kernel's
+    library."""
+    return bind(ITER_LIBRARY, "ftk_klt_iter_pyramid",
+                [_VP] * 4 + [_INT] + [_VP] * 6 + [_INT] * 5 + [_FLOAT, _VP])
+
+
+def check(cond: bool, where: str, msg: str) -> None:
     if not cond:
-        raise ValueError(f"track_pyramid_fast_cuda: {msg}")
+        raise ValueError(f"{where}: {msg}")
 
 
-def _launch(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv, skip):
+def check_images(where: str, dev, ref_imgs, cur_imgs) -> None:
+    """Both sequences hold contiguous float32 ``[H, W]`` images on ``dev``,
+    pairwise of one shape."""
+    for r, c in zip(ref_imgs, cur_imgs):
+        for img in (r, c):
+            check(img.device == dev, where,
+                  "all tensors must share one device")
+            check(img.dtype == torch.float32 and img.dim() == 2
+                  and img.is_contiguous(), where,
+                  "levels must be contiguous float32 [H, W]")
+        check(r.shape == c.shape, where, "ref and cur levels differ in shape")
+
+
+def check_features(where: str, dev, n: int, skip, **tensors) -> None:
+    """``skip`` is bool ``[N]`` and every named tensor contiguous float32
+    ``[N, ...]`` of its given trailing shape, all on ``dev``."""
+    check(skip.shape == (n,) and skip.dtype == torch.bool, where,
+          "skip must be bool [N]")
+    for name, (t, tail) in tensors.items():
+        check(tuple(t.shape) == (n,) + tail, where,
+              f"{name} must be [N{''.join(f', {d}' for d in tail)}]")
+        check(t.dtype == torch.float32, where, f"{name} must be float32")
+    for t in [skip] + [t for t, _ in tensors.values()]:
+        check(t.device == dev and t.is_contiguous(), where,
+              "features and skip must be contiguous on the images' device")
+
+
+def raise_on_error(lib, function: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"{function} launch failed: "
+            f"{lib.ftk_cuda_error_string(rc).decode()} (cudaError {rc})")
+
+
+def _launch_pyramid(wrapper, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
+                    cur_uv, status, skip):
+    """Check the inputs and launch the FAST kernel (``status`` None) or the
+    DIRECT / INVERSE kernel."""
+    where = wrapper.__name__
     dev = ref_uv.device
     levels = len(ref_pyr)
     n = ref_uv.shape[0]
-    _check(1 <= levels <= MAX_LEVELS and len(cur_pyr) == levels,
-           f"need 1..{MAX_LEVELS} levels in both pyramids, got "
-           f"{levels} and {len(cur_pyr)}")
-    for r, c in zip(ref_pyr, cur_pyr):
-        for img in (r, c):
-            _check(img.device == dev, "all tensors must share one device")
-            _check(img.dtype == torch.float32 and img.dim() == 2
-                   and img.is_contiguous(),
-                   "levels must be contiguous float32 [H, W]")
-        _check(r.shape == c.shape, "ref and cur levels differ in shape")
-    _check(ref_uv.shape == (n, 2) and cur_uv.shape == (n, 2),
-           "ref_uv and cur_uv must be [N, 2]")
-    _check(skip.shape == (n,) and skip.dtype == torch.bool,
-           "skip must be bool [N]")
-    for t in (ref_uv, cur_uv, skip):
-        _check(t.device == dev and t.is_contiguous(),
-               "uv and skip must be contiguous on the pyramids' device")
-    _check(ref_uv.dtype == torch.float32 and cur_uv.dtype == torch.float32,
-           "uv must be float32")
+    check(1 <= levels <= MAX_LEVELS and len(cur_pyr) == levels, where,
+          f"need 1..{MAX_LEVELS} levels in both pyramids, got "
+          f"{levels} and {len(cur_pyr)}")
+    check_images(where, dev, ref_pyr, cur_pyr)
+    check_features(where, dev, n, skip, ref_uv=(ref_uv, (2,)),
+                   cur_uv=(cur_uv, (2,)))
+    if status is not None:
+        check(status.shape == (n,) and status.dtype == torch.int8
+              and status.device == dev and status.is_contiguous(), where,
+              "status must be contiguous int8 [N] on the images' device")
 
     out_uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
     out_st = torch.empty((n,), dtype=torch.int8, device=dev)
     if n == 0:
         return out_uv, out_st
-    lib = load_klt_library()
     ptrs = ctypes.c_void_p * levels
     ints = ctypes.c_int * levels
-    ref_ptrs = ptrs(*[im.data_ptr() for im in ref_pyr])
-    cur_ptrs = ptrs(*[im.data_ptr() for im in cur_pyr])
-    hs = ints(*[im.shape[0] for im in ref_pyr])
-    ws = ints(*[im.shape[1] for im in ref_pyr])
+    pyramids = [ctypes.cast(a, ctypes.c_void_p) for a in (
+        ptrs(*[im.data_ptr() for im in ref_pyr]),
+        ptrs(*[im.data_ptr() for im in cur_pyr]),
+        ints(*[im.shape[0] for im in ref_pyr]),
+        ints(*[im.shape[1] for im in ref_pyr]))]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ftk_klt_fast_pyramid(
-            ctypes.cast(ref_ptrs, ctypes.c_void_p),
-            ctypes.cast(cur_ptrs, ctypes.c_void_p),
-            ctypes.cast(hs, ctypes.c_void_p), ctypes.cast(ws, ctypes.c_void_p),
-            levels, ref_uv.data_ptr(), cur_uv.data_ptr(), skip.data_ptr(),
-            out_uv.data_ptr(), out_st.data_ptr(), n,
-            opts.patch_row_half_size, opts.patch_col_half_size,
-            opts.max_iterations, opts.max_tolerance_large_step,
-            float(opts.max_converge_step), stream)
-    if rc != 0:
-        raise RuntimeError(
-            "ftk_klt_fast_pyramid launch failed: "
-            f"{lib.ftk_cuda_error_string(rc).decode()} (cudaError {rc})")
-    track_pyramid_fast_cuda.launches += 1
+        if status is None:
+            lib, function = load_klt_library(), "ftk_klt_fast_pyramid"
+            rc = lib.ftk_klt_fast_pyramid(
+                *pyramids, levels, ref_uv.data_ptr(), cur_uv.data_ptr(),
+                skip.data_ptr(), out_uv.data_ptr(), out_st.data_ptr(), n,
+                opts.patch_row_half_size, opts.patch_col_half_size,
+                opts.max_iterations, opts.max_tolerance_large_step,
+                float(opts.max_converge_step), stream)
+        else:
+            lib, function = load_klt_iter_library(), "ftk_klt_iter_pyramid"
+            rc = lib.ftk_klt_iter_pyramid(
+                *pyramids, levels, ref_uv.data_ptr(), cur_uv.data_ptr(),
+                status.data_ptr(), skip.data_ptr(), out_uv.data_ptr(),
+                out_st.data_ptr(), n,
+                int(opts.method == KltMethod.INVERSE),
+                opts.patch_row_half_size, opts.patch_col_half_size,
+                opts.max_iterations, float(opts.max_converge_step), stream)
+    raise_on_error(lib, function, rc)
+    wrapper.launches += 1
     return out_uv, out_st
 
 
@@ -116,16 +167,46 @@ def track_pyramid_fast_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
     kernel (counted in ``track_pyramid_fast_cuda.launches``) or raise."""
     # Imported here: trackers.klt imports this module.
     from feature_tracker_tpu_torch.trackers.klt.basic import (
-        require_fast,
         track_pyramid_fast_reference,
     )
-    require_fast(opts)
+    check(opts.method == KltMethod.FAST, "track_pyramid_fast_cuda",
+          "FAST mode only; DIRECT/INVERSE is track_pyramid_iter_cuda")
     if ref_uv.device.type == "cpu":
         return track_pyramid_fast_reference(opts, ref_pyr, cur_pyr, ref_uv,
                                             cur_uv, skip)
-    _check(ref_uv.device.type == "cuda",
-           f"unsupported device {ref_uv.device}")
-    return _launch(opts, ref_pyr, cur_pyr, ref_uv, cur_uv, skip)
+    check(ref_uv.device.type == "cuda", "track_pyramid_fast_cuda",
+          f"unsupported device {ref_uv.device}")
+    return _launch_pyramid(track_pyramid_fast_cuda, opts, ref_pyr, cur_pyr,
+                           ref_uv, cur_uv, None, skip)
+
+
+def track_pyramid_iter_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
+                            cur_uv, status, skip):
+    """Whole-pyramid DIRECT / INVERSE tracker (``opts.method``) in one
+    kernel launch.
+
+    Arguments as :func:`track_pyramid_fast_cuda`, plus ``status`` ``[N]``
+    int8, the incoming status: it is kept, also from level to level, until
+    a break rule sets another. Skipped lanes return ``cur_uv`` and their
+    incoming status.
+
+    Returns ``(uv [N, 2] float32, status [N] int8)``; the final outside
+    check is the caller's. CPU tensors take the plain PyTorch version;
+    CUDA tensors launch the kernel (counted in
+    ``track_pyramid_iter_cuda.launches``) or raise."""
+    from feature_tracker_tpu_torch.trackers.klt.basic import (
+        track_pyramid_iter_reference,
+    )
+    check(opts.method != KltMethod.FAST, "track_pyramid_iter_cuda",
+          "DIRECT/INVERSE only; FAST mode is track_pyramid_fast_cuda")
+    if ref_uv.device.type == "cpu":
+        return track_pyramid_iter_reference(opts, ref_pyr, cur_pyr, ref_uv,
+                                            cur_uv, status, skip)
+    check(ref_uv.device.type == "cuda", "track_pyramid_iter_cuda",
+          f"unsupported device {ref_uv.device}")
+    return _launch_pyramid(track_pyramid_iter_cuda, opts, ref_pyr, cur_pyr,
+                           ref_uv, cur_uv, status, skip)
 
 
 track_pyramid_fast_cuda.launches = 0
+track_pyramid_iter_cuda.launches = 0

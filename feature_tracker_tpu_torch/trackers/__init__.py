@@ -1,3 +1,3 @@
-from feature_tracker_tpu_torch.trackers.klt import BasicKlt
+from feature_tracker_tpu_torch.trackers.klt import AffineKlt, BasicKlt, LssdKlt
 
-__all__ = ["BasicKlt"]
+__all__ = ["AffineKlt", "BasicKlt", "LssdKlt"]

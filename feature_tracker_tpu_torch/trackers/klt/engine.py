@@ -34,22 +34,33 @@ class StepResult(NamedTuple):
 
     num_valid: torch.Tensor     # [N] int: valid pixels used by this step
     v: torch.Tensor             # [N, D] step driving the convergence checks
-    new_state: torch.Tensor     # [N, ...] candidate updated state
+    new_state: object           # [N, ...] tensor, or a tuple of them
     break_status: torch.Tensor  # [N] int8: 0 = none; else status to set
 
 
 NO_BREAK = 0
 
 
+def _tree_select(pred: torch.Tensor, on_true, on_false):
+    """Lane-by-lane select over a tensor or a tuple of tensors whose first
+    dimension is the feature."""
+    if isinstance(on_true, (tuple, list)):
+        return tuple(_tree_select(pred, a, b)
+                     for a, b in zip(on_true, on_false))
+    return torch.where(pred.reshape(pred.shape + (1,) * (on_true.dim() - 1)),
+                       on_true, on_false)
+
+
 def run_klt_iterations(
-    step_fn: Callable[[torch.Tensor], StepResult],
-    state0: torch.Tensor,
+    step_fn: Callable[[object], StepResult],
+    state0,
     status0: torch.Tensor,
     done0: torch.Tensor,
     opts: KltOptions,
     divergence_counter: bool,
 ):
-    """Run the batched GN loop.
+    """Run the batched GN loop. The state is one ``[N, ...]`` tensor or a
+    tuple of them (affine: ``(uv, affine)``; LSSD: ``(rot, t)``).
 
     Returns ``(final_state, final_status, steps)``; ``steps`` ``[N]`` counts
     the iterations each feature computed a step in (its work)."""
@@ -71,8 +82,7 @@ def run_klt_iterations(
         sq = (res.v * res.v).sum(dim=-1)
 
         do_update = ~(done | no_valid | isnan)
-        upd = do_update.reshape(do_update.shape + (1,) * (state.dim() - 1))
-        state = torch.where(upd, res.new_state, state)
+        state = _tree_select(do_update, res.new_state, state)
 
         if divergence_counter:
             shrink = sq < last_sq

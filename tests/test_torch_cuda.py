@@ -11,15 +11,26 @@ import numpy as np
 import pytest
 import torch
 
-from feature_tracker_tpu_torch.core.config import KltOptions
-from feature_tracker_tpu_torch.ops import cuda_klt
+from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
+from feature_tracker_tpu_torch.ops import cuda_klt, cuda_warp_klt
 from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
-from feature_tracker_tpu_torch.trackers.klt import BasicKlt
+from feature_tracker_tpu_torch.trackers.klt import (
+    AffineKlt,
+    BasicKlt,
+    LssdKlt,
+)
+from feature_tracker_tpu_torch.trackers.klt.affine import (
+    affine_track_level_reference,
+)
 from feature_tracker_tpu_torch.trackers.klt.basic import (
     track_pyramid_fast_reference,
+    track_pyramid_iter_reference,
+)
+from feature_tracker_tpu_torch.trackers.klt.lssd import (
+    lssd_track_level_reference,
 )
 
-from synthetic import translated_pair
+from synthetic import se2_pair, translated_pair
 
 pytestmark = pytest.mark.cuda
 
@@ -115,3 +126,223 @@ def test_inputs_the_kernel_cannot_take_raise(pair):
     with pytest.raises(RuntimeError, match="launch failed"):
         call(KltOptions(patch_row_half_size=200, patch_col_half_size=200),
              rp, cp, uv, uv, skip)
+
+
+# --- DIRECT / INVERSE basic KLT, affine and SE(2) kernels -------------------
+
+ITERATIVE = [KltMethod.INVERSE, KltMethod.DIRECT]
+
+
+def _mixed_features():
+    """Interior, border, off-image and parked features."""
+    return torch.from_numpy(np.concatenate([
+        _features(500, 240, 320, -4, seed=15),
+        [[-30.0, -30.0], [400.0, 20.0], [-4096.0, -4096.0]]]
+    ).astype(np.float32)).cuda()
+
+
+@pytest.mark.parametrize("method", ITERATIVE)
+@pytest.mark.parametrize("patch", [{}, {"patch_row_half_size": 15},
+                                   {"patch_col_half_size": 2,
+                                    "max_iterations": 4}])
+def test_iter_kernel_matches_plain_version(pair, method, patch):
+    rp, cp = pair
+    opts = KltOptions(method=method, **patch)
+    uv = _mixed_features()
+    n = uv.shape[0]
+    skip = torch.zeros(n, dtype=torch.bool, device="cuda")
+    skip[::7] = True
+    status = torch.zeros(n, dtype=torch.int8, device="cuda")
+    status[::3] = 1
+    status[::7] = 4
+    call = cuda_klt.track_pyramid_iter_cuda
+    before = call.launches
+    ku, ks = call(opts, rp, cp, uv, uv, status, skip)
+    torch.cuda.synchronize()
+    assert call.launches == before + 1
+    assert ku.dtype == torch.float32 and ks.dtype == torch.int8
+    pu, ps = track_pyramid_iter_reference(opts, rp, cp, uv, uv, status, skip)
+    ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
+    ku, pu = ku.cpu().numpy(), pu.cpu().numpy()
+    # Sums run in another order on the card: a borderline feature may flip
+    # at the convergence threshold.
+    assert (ks != ps).sum() <= 1
+    both = (ks == 1) & (ps == 1)
+    assert np.abs(ku[both] - pu[both]).max() <= 1e-3
+    sk = skip.cpu().numpy()
+    np.testing.assert_array_equal(ks[sk], status.cpu().numpy()[sk])
+    np.testing.assert_array_equal(ku[sk], uv.cpu().numpy()[sk])
+
+
+@pytest.fixture
+def se2_images():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ref, cur = se2_pair(h=240, w=320, theta=0.005)[:2]
+    return (build_pyramid(ref, 1, device="cuda")[0],
+            build_pyramid(cur, 1, device="cuda")[0])
+
+
+def _warp_agreement(ks, ps, pairs):
+    """Statuses within 1 % and each (kernel, plain, tolerance) pair within
+    its tolerance at the 99th percentile on commonly tracked lanes. Kernel
+    and plain version accumulate their ill-conditioned 6x6 / 3x3 systems in
+    float64, so they agree far better than this; the limits are those a
+    float32 system could still meet."""
+    ks, ps = ks.cpu().numpy(), ps.cpu().numpy()
+    assert (ks != ps).sum() <= max(1, len(ks) // 100)
+    both = (ks == 1) & (ps == 1)
+    assert both.sum() > len(ks) // 2
+    for k, p, tol in pairs:
+        d = np.abs(k.cpu().numpy()[both] - p.cpu().numpy()[both])
+        assert np.percentile(d.reshape(len(d), -1).max(1), 99) <= tol
+
+
+@pytest.mark.parametrize("patch", [{}, {"patch_row_half_size": 9,
+                                        "max_iterations": 6}])
+def test_affine_kernel_matches_plain_version(se2_images, patch):
+    ref, cur = se2_images
+    opts = KltOptions(**patch)
+    uv = _mixed_features()
+    n = uv.shape[0]
+    cur_uv = (uv + torch.tensor([1.0, -0.5], device="cuda")).contiguous()
+    aff = torch.tensor([[1.01, 0.01], [-0.01, 0.99]],
+                       device="cuda").expand(n, 2, 2).contiguous()
+    skip = torch.zeros(n, dtype=torch.bool, device="cuda")
+    skip[::7] = True
+    call = cuda_warp_klt.affine_track_level_cuda
+    before = call.launches
+    ku, ka, ks = call(opts, ref, cur, uv, cur_uv, aff, skip)
+    torch.cuda.synchronize()
+    assert call.launches == before + 1
+    assert ku.shape == (n, 2) and ka.shape == (n, 2, 2)
+    assert ks.dtype == torch.int8
+    pu, pa, ps = affine_track_level_reference(opts, ref, cur, uv, cur_uv,
+                                              aff, skip)
+    _warp_agreement(ks, ps, [(ku, pu, 1e-3), (ka, pa, 5e-3)])
+    assert (ks[skip] == 0).all()
+    assert torch.equal(ku[skip], cur_uv[skip])
+    assert torch.equal(ka[skip], aff[skip])
+    off = ks[-3:].cpu().tolist()
+    assert off == [3, 3, 3]
+
+
+@pytest.mark.parametrize("luminance", [False, True])
+def test_lssd_kernel_matches_plain_version(se2_images, luminance):
+    ref, cur = se2_images
+    opts = KltOptions()
+    uv = _mixed_features()
+    n = uv.shape[0]
+    rot = torch.eye(2, device="cuda").expand(n, 2, 2).contiguous()
+    t = torch.tensor([1.0, -0.5], device="cuda").expand(n, 2).contiguous()
+    skip = torch.zeros(n, dtype=torch.bool, device="cuda")
+    skip[::7] = True
+    call = cuda_warp_klt.lssd_track_level_cuda
+    before = call.launches
+    kr, kt, ks = call(opts, luminance, ref, cur, uv, rot, t, skip)
+    torch.cuda.synchronize()
+    assert call.launches == before + 1
+    assert kr.shape == (n, 2, 2) and kt.shape == (n, 2)
+    pr, pt, ps = lssd_track_level_reference(opts, luminance, ref, cur, uv,
+                                            rot, t, skip)
+    # t absorbs R's error times the coordinate, so hold the position
+    # R uv + t to 1e-3 px instead of t itself.
+    def pos(r, tt):
+        return torch.einsum("nij,nj->ni", r, uv) + tt
+    _warp_agreement(ks, ps, [(pos(kr, kt), pos(pr, pt), 1e-3),
+                             (kr, pr, 1e-4)])
+    assert (ks[skip] == 0).all()
+    assert torch.equal(kr[skip], rot[skip]) and torch.equal(kt[skip], t[skip])
+
+
+@pytest.mark.parametrize("kind", ["inverse", "direct", "affine", "lssd",
+                                  "lssd-luminance"])
+def test_trackers_on_cuda_match_cpu(pair, kind):
+    rp, cp = pair
+    uv = _features(256, 240, 320, 2, seed=16)
+    status = np.zeros(256, np.int8)
+    status[::9] = 4
+    opts = KltOptions(max_track_points=200)
+
+    def make(device):
+        if kind == "affine":
+            return AffineKlt(opts, device=device)
+        if kind.startswith("lssd"):
+            return LssdKlt(opts, kind.endswith("luminance"), device=device)
+        return BasicKlt(KltOptions(max_track_points=200,
+                                   method=KltMethod(kind)), device=device)
+
+    gu, gs = make("cuda").track(rp, cp, uv, None, status)
+    assert gu.is_cuda and gs.is_cuda
+    cu, cs = make("cpu").track([l.cpu() for l in rp], [l.cpu() for l in cp],
+                               uv, None, status)
+    gs, cs = gs.cpu().numpy(), cs.numpy()
+    assert (gs != cs).sum() <= 2
+    both = (gs == 1) & (cs == 1)
+    d = np.abs(gu.cpu().numpy()[both] - cu.numpy()[both]).max(1)
+    assert np.percentile(d, 99) <= 1e-3 and d.max() <= 5e-2
+    np.testing.assert_array_equal(gs[200:], status[200:])  # not tracked
+    np.testing.assert_array_equal(gs[::9][:20], 4)         # skipped
+
+
+def test_new_kernels_do_not_launch_on_zero_features(pair):
+    rp, cp = pair
+    e2 = torch.zeros((0, 2), device="cuda")
+    e22 = torch.zeros((0, 2, 2), device="cuda")
+    skip = torch.zeros(0, dtype=torch.bool, device="cuda")
+    st = torch.zeros(0, dtype=torch.int8, device="cuda")
+    calls = (cuda_klt.track_pyramid_iter_cuda,
+             cuda_warp_klt.affine_track_level_cuda,
+             cuda_warp_klt.lssd_track_level_cuda)
+    before = [c.launches for c in calls]
+    out = cuda_klt.track_pyramid_iter_cuda(
+        KltOptions(method=KltMethod.DIRECT), rp, cp, e2, e2, st, skip)
+    assert out[0].shape == (0, 2) and out[1].shape == (0,)
+    out = cuda_warp_klt.affine_track_level_cuda(KltOptions(), rp[0], cp[0],
+                                                e2, e2, e22, skip)
+    assert out[1].shape == (0, 2, 2) and out[2].shape == (0,)
+    out = cuda_warp_klt.lssd_track_level_cuda(KltOptions(), True, rp[0],
+                                              cp[0], e2, e22, e2, skip)
+    assert out[0].shape == (0, 2, 2) and out[1].shape == (0, 2)
+    assert [c.launches for c in calls] == before
+
+
+def test_inputs_the_new_kernels_cannot_take_raise(pair):
+    rp, cp = pair
+    uv = torch.full((4, 2), 50.0, device="cuda")
+    eye = torch.eye(2, device="cuda").expand(4, 2, 2)
+    skip = torch.zeros(4, dtype=torch.bool, device="cuda")
+    st = torch.zeros(4, dtype=torch.int8, device="cuda")
+    inverse = KltOptions(method=KltMethod.INVERSE)
+    it = cuda_klt.track_pyramid_iter_cuda
+    with pytest.raises(ValueError, match="int8"):
+        it(inverse, rp, cp, uv, uv, st.int(), skip)
+    with pytest.raises(ValueError, match="float32"):
+        it(inverse, rp, cp, uv.double(), uv.double(), st, skip)
+    with pytest.raises(ValueError, match="FAST"):
+        it(KltOptions(), rp, cp, uv, uv, st, skip)
+    huge = {"patch_row_half_size": 200, "patch_col_half_size": 200}
+    with pytest.raises(RuntimeError, match="launch failed"):
+        it(KltOptions(method=KltMethod.INVERSE, **huge), rp, cp, uv, uv, st,
+           skip)
+    aff = cuda_warp_klt.affine_track_level_cuda
+    with pytest.raises(ValueError, match="contiguous"):
+        aff(KltOptions(), rp[0], cp[0], uv, uv, eye, skip)  # expanded view
+    with pytest.raises(ValueError, match=r"affine must be \[N, 2, 2\]"):
+        aff(KltOptions(), rp[0], cp[0], uv, uv, uv, skip)
+    with pytest.raises(ValueError, match="shape"):
+        aff(KltOptions(), rp[0], cp[1], uv, uv, eye.contiguous(), skip)
+    with pytest.raises(ValueError, match="FAST mode only"):
+        aff(inverse, rp[0], cp[0], uv, uv, eye.contiguous(), skip)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        aff(KltOptions(**huge), rp[0], cp[0], uv, uv, eye.contiguous(), skip)
+    ls = cuda_warp_klt.lssd_track_level_cuda
+    with pytest.raises(ValueError, match="device"):
+        ls(KltOptions(), False, rp[0], cp[0], uv, eye.contiguous(), uv.cpu(),
+           skip)
+    with pytest.raises(ValueError, match="bool"):
+        ls(KltOptions(), False, rp[0], cp[0], uv, eye.contiguous(), uv,
+           skip.int())
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ls(KltOptions(**huge), True, rp[0], cp[0], uv, eye.contiguous(), uv,
+           skip)

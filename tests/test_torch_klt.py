@@ -1,9 +1,10 @@
 """CPU parity of the port's basic-KLT tracker with the JAX package.
 
-The port's CPU path is the plain PyTorch version of the CUDA kernel
-(trackers/klt/basic.py::track_pyramid_fast_reference). It is held against
-the JAX ``BasicKlt`` (whose CPU path is the jnp ``_basic_pyramid``),
-against the Pallas kernel in interpret mode, and against the native C++
+The port's CPU path is the plain PyTorch version of its CUDA kernels
+(trackers/klt/basic.py::track_pyramid_fast_reference and
+track_pyramid_iter_reference). It is held against the JAX ``BasicKlt``
+(whose CPU path is the jnp ``_basic_pyramid``) in all three solver modes,
+against the Pallas kernels in interpret mode, and against the native C++
 ground truth. Statuses must be equal and uv within 1e-3 px: only the order
 of the patch sums differs between the implementations.
 """
@@ -24,6 +25,7 @@ from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
 from feature_tracker_tpu_torch.trackers.klt import BasicKlt
 from feature_tracker_tpu_torch.trackers.klt.basic import (
     track_pyramid_fast_reference,
+    track_pyramid_iter_reference,
 )
 
 from synthetic import translated_pair
@@ -49,7 +51,8 @@ def _both(opts, pyrs, uv, cur_uv=None, status=None):
     jopts = JaxOptions(**{k: getattr(opts, k) for k in
                           ("max_track_points", "max_iterations",
                            "max_tolerance_large_step", "patch_row_half_size",
-                           "patch_col_half_size", "max_converge_step")})
+                           "patch_col_half_size", "max_converge_step")},
+                      method=JaxMethod(opts.method.value))
     j = JaxBasicKlt(jopts).track(
         jrp, jcp, jnp.asarray(uv),
         None if cur_uv is None else jnp.asarray(cur_uv),
@@ -253,10 +256,142 @@ def test_engine_break_rules_match_jax(divergence_counter):
     assert steps[7] == 0 and steps.max() <= 12
 
 
-@pytest.mark.parametrize("method", [KltMethod.DIRECT, KltMethod.INVERSE])
-def test_direct_inverse_name_the_next_slice(pyrs, method):
+ITERATIVE = [KltMethod.DIRECT, KltMethod.INVERSE]
+
+
+@pytest.mark.parametrize("method", ITERATIVE)
+def test_iterative_modes_match_jax(pyrs, method):
+    uv = _features(64, 120, 160, 8, seed=21)
+    ju, js, tu, ts = _both(KltOptions(max_track_points=64, method=method),
+                           pyrs, uv)
+    _assert_same(ju, js, tu, ts)
+    tracked = ts == int(TrackStatus.TRACKED)
+    assert tracked.sum() > 56
+    flow = np.median(tu[tracked] - uv[tracked], axis=0)
+    np.testing.assert_allclose(flow, [3.0, -2.0], atol=0.05)
+
+
+@pytest.mark.parametrize("method", ITERATIVE)
+def test_iterative_modes_keep_incoming_status(pyrs, method):
+    """DIRECT/INVERSE keep the status a feature came in with unless a
+    break rule sets another: with one iteration and an unreachable
+    convergence threshold nothing converges, so TRACKED stays TRACKED and
+    NOT_TRACKED stays NOT_TRACKED, while failed lanes are skipped."""
+    uv = _features(48, 120, 160, 12, seed=22)
+    status = np.zeros(48, np.int8)
+    status[::3] = 1
+    status[1::12] = [2, 3, 4, 2]
+    opts = KltOptions(max_track_points=48, method=method, max_iterations=1,
+                      max_converge_step=1e-12)
+    ju, js, tu, ts = _both(opts, pyrs, uv, uv + np.float32(0.25), status)
+    _assert_same(ju, js, tu, ts)
+    np.testing.assert_array_equal(ts, status)
+    assert np.abs(tu - uv).max() > 0.5  # the non-skipped lanes did move
+
+
+@pytest.mark.parametrize("method", ITERATIVE)
+def test_iterative_modes_border_off_image_and_outside_break(pyrs, method):
+    """Border and off-image features, and features whose prediction sends
+    them across the border of a coarse level, where the per-level OUTSIDE
+    break fires."""
+    uv = np.concatenate([_features(40, 120, 160, -3, seed=23),
+                         [[-30.0, -30.0], [200.0, 20.0], [80.0, 60.0],
+                          [-4000.0, 5000.0], [1.0, 1.0], [158.5, 118.0]]]
+                        ).astype(np.float32)
+    cur_uv = uv.copy()
+    cur_uv[-2:] += np.float32([[-0.9, -0.9], [0.4, 0.9]])
+    ju, js, tu, ts = _both(KltOptions(max_track_points=64, method=method),
+                           pyrs, uv, cur_uv)
+    _assert_same(ju, js, tu, ts)
+    # No valid pixel: the chain leaves position and status untouched, and
+    # the final check marks the off-image position OUTSIDE.
+    assert list(ts[[-6, -5, -3]]) == [3, 3, 3]
+    np.testing.assert_array_equal(tu[[-6, -5, -3]], uv[[-6, -5, -3]])
+    assert ts[-4] == int(TrackStatus.TRACKED)
+    # The image content moves these two across the border.
+    assert list(ts[-2:]) == [3, 3]
+
+
+@pytest.mark.parametrize("method", ITERATIVE)
+def test_iterative_single_level_and_stream_match_jax(method):
+    ref, cur = translated_pair(h=80, w=112, shift=(1.0, 0.5))
+    uv = _features(32, 80, 112, 6, seed=24)
+    opts = KltOptions(max_track_points=32, method=method)
+    jopts = JaxOptions(max_track_points=32, method=JaxMethod(method.value))
+    jr, jc = jnp.asarray(np.floor(ref)), jnp.asarray(np.floor(cur))
+    ju, js = JaxBasicKlt(jopts).track_single_level(jr, jc, jnp.asarray(uv))
+    tu, ts = BasicKlt(opts, device="cpu").track_single_level(
+        np.floor(ref), np.floor(cur), uv)
+    _assert_same(np.asarray(ju), np.asarray(js), tu.numpy(), ts.numpy())
+
+    _, third = translated_pair(h=80, w=112, shift=(2.0, 1.0))
+    frames = np.stack([ref, cur, third])
+    ju, js = JaxBasicKlt(jopts).track_stream(frames, uv, levels=2)
+    tu, ts = BasicKlt(opts, device="cpu").track_stream(frames, uv, levels=2)
+    _assert_same(np.asarray(ju), np.asarray(js), tu.numpy(), ts.numpy())
+
+
+@pytest.mark.parametrize("method", ITERATIVE)
+def test_iter_plain_version_matches_interpret_pallas(method):
+    from feature_tracker_tpu.ops.pallas_klt import track_pyramid_iter_pallas
+
+    jrp, jcp, trp, tcp = _pyramids(64, 96, (1.5, -1.0), 2)
+    uv = _features(16, 64, 96, 2, seed=25)
+    status = np.zeros(16, np.int8)
+    status[::5] = 1
+    jopts = JaxOptions(max_track_points=16, method=JaxMethod(method.value))
+    pu, ps = track_pyramid_iter_pallas(jopts, jrp, jcp, jnp.asarray(uv),
+                                       jnp.asarray(uv), jnp.asarray(status),
+                                       interpret=True)
+    t = torch.from_numpy(uv)
+    tu, ts = track_pyramid_iter_reference(
+        KltOptions(max_track_points=16, method=method), trp, tcp, t, t,
+        torch.from_numpy(status), torch.zeros(16, dtype=torch.bool))
+    _assert_same(np.asarray(pu), np.asarray(ps), tu.numpy(), ts.numpy())
+
+
+@pytest.mark.parametrize("method", ITERATIVE)
+def test_iter_cpu_wrapper_takes_plain_version_without_launching(pyrs, method):
     _, _, trp, tcp = pyrs
-    tracker = BasicKlt(KltOptions(method=method), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tracker.track(trp, tcp, np.zeros((4, 2), np.float32) + 50)
-    assert JaxMethod(method.value).value == method.value
+    uv = torch.from_numpy(_features(16, 120, 160, 8, seed=26))
+    skip = torch.zeros(16, dtype=torch.bool)
+    skip[3] = True
+    status = torch.zeros(16, dtype=torch.int8)
+    status[3] = 4
+    opts = KltOptions(method=method)
+    before = cuda_klt.track_pyramid_iter_cuda.launches
+    got = cuda_klt.track_pyramid_iter_cuda(opts, trp, tcp, uv, uv, status,
+                                           skip)
+    want, steps = track_pyramid_iter_reference(
+        opts, trp, tcp, uv, uv, status, skip, with_steps=True)[::2]
+    assert cuda_klt.track_pyramid_iter_cuda.launches == before
+    assert torch.equal(got[0], want)
+    assert int(got[1][3]) == 4 and torch.equal(got[0][3], uv[3])
+    assert steps[3] == 0 and steps.max() <= 3 * opts.max_iterations
+    with pytest.raises(ValueError, match="FAST"):
+        cuda_klt.track_pyramid_iter_cuda(KltOptions(), trp, tcp, uv, uv,
+                                         status, skip)
+    with pytest.raises(ValueError, match="FAST"):
+        cuda_klt.track_pyramid_fast_cuda(opts, trp, tcp, uv, uv, skip)
+
+
+@pytest.mark.parametrize("method", [KltMethod.FAST] + ITERATIVE)
+def test_track_level_matches_jax(pyrs, method):
+    """The one-level function, all modes: FAST rewrites the incoming
+    status, DIRECT/INVERSE keep it unless a break rule sets another."""
+    from feature_tracker_tpu.trackers.klt import basic as jax_basic
+    from feature_tracker_tpu_torch.trackers.klt import basic
+
+    jrp, jcp, trp, tcp = pyrs
+    uv = _features(32, 60, 80, 1, seed=27) - np.float32(0.5)
+    cur_uv = uv + np.float32([0.4, -0.3])
+    status = np.zeros(32, np.int8)
+    status[::4] = 1
+    ju, js = jax_basic.track_level(
+        JaxOptions(method=JaxMethod(method.value)), jrp[1], jcp[1],
+        jnp.asarray(uv), jnp.asarray(cur_uv), jnp.asarray(status))
+    tu, ts = basic.track_level(
+        KltOptions(method=method), trp[1], tcp[1], torch.from_numpy(uv),
+        torch.from_numpy(cur_uv), torch.from_numpy(status))
+    _assert_same(np.asarray(ju), np.asarray(js), tu.numpy(), ts.numpy())
+    assert (ts == int(TrackStatus.TRACKED)).sum() > 24

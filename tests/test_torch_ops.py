@@ -11,11 +11,12 @@ import torch
 
 from feature_tracker_tpu.core.config import HarrisOptions as JaxHarris
 from feature_tracker_tpu.ops import detect as jax_detect
+from feature_tracker_tpu.ops import interp as jax_interp
 from feature_tracker_tpu.ops import solve as jax_solve
 from feature_tracker_tpu.ops import window as jax_window
 from feature_tracker_tpu.ops.pyramid import build_pyramid as jax_pyramid
 from feature_tracker_tpu_torch.core.config import HarrisOptions
-from feature_tracker_tpu_torch.ops import detect, solve, window
+from feature_tracker_tpu_torch.ops import detect, interp, solve, window
 from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
 
 from synthetic import translated_pair
@@ -161,3 +162,134 @@ def test_greedy_suppression_is_the_sequential_scan():
     jgot = jax_detect.greedy_suppression(jnp.asarray(valid),
                                          jnp.asarray(conflict), chunk=128)
     np.testing.assert_array_equal(np.asarray(jgot), want)
+
+
+def _image(h=40, w=56, seed=3):
+    return np.random.default_rng(seed).uniform(0, 255, (h, w)).astype(
+        np.float32)
+
+
+def test_bilinear_sample_matches_jax_and_masks_runaway_positions():
+    img = _image()
+    rng = np.random.default_rng(4)
+    pos = rng.uniform(-3, 60, (5, 17, 2)).astype(np.float32)
+    pos[0, :4] = [[0.0, 0.0], [54.0, 38.0], [54.999, 38.999], [55.0, 20.0]]
+    want_v, want_ok = jax_interp.bilinear_sample(jnp.asarray(img),
+                                                 jnp.asarray(pos))
+    got_v, got_ok = interp.bilinear_sample(torch.from_numpy(img),
+                                           torch.from_numpy(pos))
+    np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
+    np.testing.assert_allclose(got_v.numpy(), np.asarray(want_v), rtol=1e-6,
+                               atol=1e-4)
+    assert got_ok.numpy()[0, :4].tolist() == [True, True, True, False]
+    # Positions no integer can hold, infinite or NaN: invalid, read 0, and
+    # nothing raises.
+    wild = torch.tensor([[1e20, 5.0], [5.0, -1e20], [np.inf, 5.0],
+                         [5.0, -np.inf], [np.nan, 5.0], [5.0, np.nan],
+                         [3e9, 3e9]], dtype=torch.float32)
+    v, ok = interp.bilinear_sample(torch.from_numpy(img), wild)
+    assert not ok.any() and (v == 0).all()
+
+
+def test_extract_const_weight_patch_and_inner_gradients_match_jax():
+    import jax
+
+    img = _image()
+    uv = np.array([[20.3, 15.7], [0.5, 0.5], [54.2, 38.9], [-20.0, 5.0],
+                   [30.0, 20.0], [55.9, 2.1]], np.float32)
+    want_p, want_ok = jax.vmap(lambda p: jax_interp.extract_const_weight_patch(
+        jnp.asarray(img), p, 9, 7))(jnp.asarray(uv))
+    got_p, got_ok = interp.extract_const_weight_patch(
+        torch.from_numpy(img), torch.from_numpy(uv), 9, 7)
+    assert got_p.shape == (6, 9, 7)
+    np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=1e-6,
+                               atol=1e-4)
+    assert not got_ok[3].any() and got_ok[4].all()
+    want_dx, want_dy = jax.vmap(jax_interp.inner_gradients)(want_p, want_ok)
+    got_dx, got_dy = interp.inner_gradients(got_p, got_ok)
+    assert got_dx.shape == (6, 7, 5)
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx), atol=2e-4)
+    np.testing.assert_allclose(got_dy.numpy(), np.asarray(want_dy), atol=2e-4)
+    # A border patch has masked gradients, an interior one none.
+    assert (got_dx[1] == 0).any() and (got_dx[4] != 0).all()
+
+
+@pytest.mark.parametrize("dim", [3, 6])
+def test_solve_sym_matches_jax_including_singular(dim):
+    """Well-conditioned systems agree to float32 accuracy; singular ones
+    (zero matrix, zero row and column) raise nothing and are non-finite
+    where JAX's are, so the engine's NaN test fires on the same lanes."""
+    import jax
+
+    rng = np.random.default_rng(dim)
+    a = rng.normal(size=(7, 40, dim)).astype(np.float32)
+    h = np.einsum("npi,npj->nij", a, a)
+    b = rng.normal(size=(7, dim)).astype(np.float32)
+    h[1] = 0.0
+    b[1] = 0.0
+    h[2] = 0.0
+    h[3, :, 1] = 0.0
+    h[3, 1, :] = 0.0
+    b[3, 1] = 0.0
+    want = np.asarray(jax.vmap(jax_solve.solve_sym)(jnp.asarray(h),
+                                                     jnp.asarray(b)))
+    got = solve.solve_sym(torch.from_numpy(h), torch.from_numpy(b)).numpy()
+    good = [0, 4, 5, 6]
+    np.testing.assert_allclose(got[good], want[good], rtol=2e-3, atol=1e-5)
+    for lane in (1, 2, 3):
+        assert not np.isfinite(want[lane]).all()
+        assert not np.isfinite(got[lane]).all()
+        assert np.isnan(got[lane]).any() == np.isnan(want[lane]).any(), lane
+    assert solve.solve_sym(torch.zeros(0, dim, dim),
+                           torch.zeros(0, dim)).shape == (0, dim)
+
+
+def test_engine_selects_tuple_state_lane_by_lane():
+    """A tuple state (as the affine and SE(2) trackers carry) is updated
+    lane by lane, like JAX's pytree select."""
+    import jax
+
+    from feature_tracker_tpu.core.config import KltOptions as JaxOptions
+    from feature_tracker_tpu.trackers.klt import engine as jax_engine
+    from feature_tracker_tpu_torch.core.config import KltOptions
+    from feature_tracker_tpu_torch.trackers.klt import engine
+
+    rate = np.array([0.5, 1.0, np.nan, 0.5, 2.1], np.float32)
+    n_valid = np.array([5, 5, 5, 0, 5], np.int32)
+    uv0 = np.zeros((5, 2), np.float32) + np.float32(0.25)
+    m0 = np.tile(np.eye(2, dtype=np.float32), (5, 1, 1))
+    status0 = np.full(5, 2, np.int8)
+
+    def jax_one(uv, m, r, nv):
+        def step(state):
+            u, mm = state
+            v = (2.0 - u) * r
+            return jax_engine.StepResult(nv, v, (u + v, mm + v[0]),
+                                         jax_engine.NO_BREAK)
+        return jax_engine.run_klt_iterations(
+            step, (uv, m), jnp.int8(2), False, JaxOptions(max_iterations=8),
+            True)
+
+    (want_uv, want_m), want_st = jax.vmap(jax_one)(
+        jnp.asarray(uv0), jnp.asarray(m0), jnp.asarray(rate),
+        jnp.asarray(n_valid))
+
+    t_rate = torch.from_numpy(rate)[:, None]
+
+    def step(state):
+        u, mm = state
+        v = (2.0 - u) * t_rate
+        return engine.StepResult(torch.from_numpy(n_valid), v,
+                                 (u + v, mm + v[:, 0, None, None]),
+                                 torch.zeros(5, dtype=torch.int8))
+
+    (uv, m), st, steps = engine.run_klt_iterations(
+        step, (torch.from_numpy(uv0), torch.from_numpy(m0)),
+        torch.from_numpy(status0), torch.zeros(5, dtype=torch.bool),
+        KltOptions(max_iterations=8), True)
+    np.testing.assert_array_equal(st.numpy(), np.asarray(want_st))
+    np.testing.assert_allclose(uv.numpy(), np.asarray(want_uv), atol=1e-5)
+    np.testing.assert_allclose(m.numpy(), np.asarray(want_m), atol=1e-5)
+    np.testing.assert_array_equal(m.numpy()[[2, 3]], m0[[2, 3]])  # untouched
+    assert steps.tolist()[2:4] == [1, 1]

@@ -12,9 +12,11 @@ import torch
 from feature_tracker_tpu.core import config as jax_config
 from feature_tracker_tpu.pipeline import FrontEndConfig as JaxFrontEndConfig
 from feature_tracker_tpu.pipeline import TrackingFrontEnd as JaxFrontEnd
+from feature_tracker_tpu.trackers import klt as jax_klt
 from feature_tracker_tpu_torch.convert import (
     front_end_state_from_jax,
     options_from_jax,
+    tracker_from_jax,
 )
 from feature_tracker_tpu_torch.core import config
 from feature_tracker_tpu_torch.pipeline import FrontEndConfig, TrackingFrontEnd
@@ -60,6 +62,42 @@ def test_front_end_matches_jax(capacity, min_live, distance, response):
     for f in frames:
         _assert_same_frame(jfe.process_frame(f), tfe.process_frame(f))
     assert tfe.process_frame(frames[-1]).num_live > 10
+
+
+def _jax_tracker(kind, capacity):
+    opts = jax_config.KltOptions(max_track_points=capacity)
+    if kind == "affine":
+        return jax_klt.AffineKlt(opts)
+    if kind == "lssd-luminance":
+        return jax_klt.LssdKlt(opts, consider_patch_luminance=True)
+    if kind == "lssd":
+        return jax_klt.LssdKlt(opts)
+    return jax_klt.BasicKlt(dataclasses.replace(
+        opts, method=jax_config.KltMethod(kind)))
+
+
+@pytest.mark.parametrize("kind", ["inverse", "direct", "affine", "lssd",
+                                  "lssd-luminance"])
+def test_front_end_with_each_tracker_matches_jax(kind):
+    """TrackingFrontEnd(cfg, tracker=...) with the trackers of this slice,
+    each carried across by tracker_from_jax: equal ids, statuses and live
+    counts over 4 frames. uv within 5e-3 px for the warp trackers (their
+    ill-conditioned solve, see test_torch_warp_klt.py), 1e-3 otherwise."""
+    frames = _sequence(n_frames=4, dc=2.0)
+    jcfg = _jax_cfg(64, 20, 10, 20.0)
+    jtracker = _jax_tracker(kind, 64)
+    jfe = JaxFrontEnd(jcfg, tracker=jtracker)
+    tfe = TrackingFrontEnd(options_from_jax(jcfg),
+                           tracker=tracker_from_jax(jtracker, device="cpu"),
+                           device="cpu")
+    atol = 1e-3 if kind in ("inverse", "direct") else 5e-3
+    for f in frames:
+        j, t = jfe.process_frame(f), tfe.process_frame(f)
+        assert t.frame_id == j.frame_id and t.num_live == j.num_live
+        np.testing.assert_array_equal(t.track_ids, j.track_ids)
+        np.testing.assert_array_equal(t.status, np.asarray(j.status))
+        np.testing.assert_allclose(t.uv, j.uv, atol=atol)
+    assert t.num_live > 10
 
 
 def test_options_from_jax_round_trips_every_field():
@@ -142,6 +180,11 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "feature_tracker_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    names = {str(p.relative_to(REPO / "feature_tracker_tpu_torch"))
+             for p in files[:-1]}
+    assert {"ops/interp.py", "ops/cuda_warp_klt.py", "trackers/klt/affine.py",
+            "trackers/klt/lssd.py", "trackers/klt/multi.py",
+            "convert.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             root = mod.split(".")[0]
