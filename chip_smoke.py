@@ -31,6 +31,20 @@ Phases (any failed check raises, so the exit code is non-zero):
      each kernel's bound from its bytes and the operations of the steps
      actually taken, and torch.profiler windows over five headline kernel
      calls and ten more front-end frames.
+  5. RAFT inference. The correlation-lookup kernel against its plain
+     version at the serving shape (batch 4, 55x128 queries, 128 channels,
+     3 levels, radius 3), on locations that leave the map or are NaN,
+     infinite or 1e9, and at odd sizes. Then the path at full width:
+     ``Raft(RaftConfig(max_iterations=6, low_memory=True,
+     upsample_last_only=True), device="cuda")`` on 440x1024 textured pairs
+     with a known shift, batch 4, weights from a seeded generator, the
+     launch count set to 0 just before and read just after (6 launches per
+     call); the same model with the lookup forced to the plain version and
+     with the materialised all-pairs volume must give the same flow; the
+     bfloat16 model is held loosely against the float32 flow, and a compact
+     model on the card against the same model on the CPU. Timings of the
+     kernel, its plain version, the materialised route, the encoders, one
+     update iteration and whole calls in float32 and bfloat16.
 Then one JSON line with the kernels of the paths, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -65,6 +79,17 @@ WARP_FRAMES = 8                            # front-end frames per new tracker
 # system in float64. The limits are what a float32 system could still meet.
 WARP_UV_P99, WARP_UV_MAX = 1e-3, 5e-2      # px, commonly tracked features
 AFFINE_P99, ROT_P99 = 5e-3, 1e-4           # matrix entries, 99th percentile
+# RAFT: the serving shape, and the limits of its comparisons.
+RAFT_H, RAFT_W, RAFT_B, RAFT_ITERS, RAFT_CALLS = 440, 1024, 4, 6, 3
+RAFT_SHIFTS = ((3.0, -2.0), (-1.5, 2.5))   # (dx, dy) of the pairs, px
+LOOKUP_TOL = 1e-4       # |kernel - plain| <= LOOKUP_TOL * (1 + |plain|)
+# Float32 flows of the three lookup routes (kernel, plain, materialised
+# volume): the routes differ by ~1e-6 per lookup (order of the sums) and
+# six iterations of a randomly weighted update block feed that back.
+RAFT_ROUTE_TOL = 5e-3   # px
+# bfloat16 against float32 flow, px: loose, the weights are random.
+RAFT_BF16_MEDIAN, RAFT_BF16_P99 = 0.25, 1.5
+RAFT_CPU_TOL = 1e-3     # px, compact model on the card against the CPU
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -386,6 +411,358 @@ def profile_window(label: str, fn, calls: int) -> None:
               f" {e.count / calls:6.1f} launches/call  {e.key[:70]}")
 
 
+def lookup_inputs(dev, seed, b, h, w, c, levels, spread=None):
+    """Feature maps, pooled pyramid and lookup locations on ``dev`` from a
+    numpy seed. ``spread=None``: locations uniform from -8 to max(h, w) + 8
+    (whole windows and single taps leave the map) with a few NaN, infinite
+    and 1e9 entries; else the pixel grid plus N(0, spread) px."""
+    from feature_tracker_tpu_torch.models.raft import pool_feature_pyramid
+
+    rng = np.random.default_rng(seed)
+    f0 = rng.normal(0, 1, (b, h, w, c)).astype(np.float32)
+    f1 = rng.normal(0, 1, (b, h, w, c)).astype(np.float32)
+    if spread is None:
+        locs = rng.uniform(-8, max(h, w) + 8, (b, h, w, 2))
+        locs[0, 0, :5, 0] = [np.nan, np.inf, -np.inf, 1e9, -1e9]
+        locs[-1, -1, -3:, 1] = [np.nan, 1e9, np.inf]
+    else:
+        gx, gy = np.meshgrid(np.arange(w), np.arange(h))
+        locs = np.stack([gx, gy], -1)[None] + rng.normal(0, spread,
+                                                         (b, h, w, 2))
+    f0, f1, locs = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                    for a in (f0, f1, locs))
+    pyr = [p.contiguous() for p in pool_feature_pyramid(f1, levels)]
+    return f0, pyr, locs
+
+
+def compare_lookup(label, f0, pyr, locs, radius):
+    """The lookup kernel against its plain version on the same card
+    inputs. Returns max |kernel - plain|."""
+    from feature_tracker_tpu_torch.models.raft import lookup_correlation_otf
+    from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
+        lookup_correlation_cuda,
+    )
+
+    before = lookup_correlation_cuda.launches
+    got = lookup_correlation_cuda(f0, pyr, locs, radius)
+    torch.cuda.synchronize()
+    check(lookup_correlation_cuda.launches == before + 1,
+          f"{label}: the wrapper did not launch the kernel")
+    want = lookup_correlation_otf(f0, pyr, locs, radius)
+    k = 2 * radius + 1
+    check(got.shape == want.shape
+          == tuple(f0.shape[:3]) + (len(pyr) * k * k,),
+          f"{label}: shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+    diff = (got - want).abs()
+    err = float(diff.max())
+    over = int((diff > LOOKUP_TOL * (1 + want.abs())).sum())
+    runaway = ~torch.isfinite(locs).all(-1) | (locs.abs() > 1e8).any(-1)
+    print(f"[compare] {label}: max|kernel - plain|={err:.3g} on values up "
+          f"to {float(want.abs().max()):.3g}; {over} of {diff.numel()} over "
+          f"{LOOKUP_TOL} * (1 + |plain|); {int(runaway.sum())} runaway "
+          "locations")
+    check(over == 0, f"{label}: {over} values differ, max {err}")
+    check(bool((got[runaway] == 0).all()),
+          f"{label}: a runaway location did not give zeros")
+    return err
+
+
+def lookup_work(f0, pyr, locs, radius):
+    """(bytes, FLOPs) of one lookup on these inputs: fmap0, every level and
+    the locations read once, the output written once; the scaling of
+    fmap0; a dot product over C for every grid pixel that lies inside its
+    map (a pixel outside costs nothing, a runaway location has none); the
+    four-tap blend of every output value."""
+    b, h, w, c = f0.shape
+    k = 2 * radius + 1
+    out_n = b * h * w * len(pyr) * k * k
+    nbytes = 4 * (f0.numel() + sum(p.numel() for p in pyr) + locs.numel()
+                  + out_n)
+    dots = 0
+    for lvl, p in enumerate(pyr):
+        corner = torch.floor(locs.double() / 2 ** lvl) - radius
+        ok = torch.isfinite(corner).all(-1) & (corner.abs() < 2 ** 30).all(-1)
+        corner = corner[ok]
+        nx = (torch.clamp(corner[:, 0] + k + 1, max=p.shape[2])
+              - torch.clamp(corner[:, 0], min=0)).clamp(min=0)
+        ny = (torch.clamp(corner[:, 1] + k + 1, max=p.shape[1])
+              - torch.clamp(corner[:, 1], min=0)).clamp(min=0)
+        dots += int((nx * ny).sum())
+    return nbytes, f0.numel() + dots * 2 * c + out_n * 7
+
+
+def random_raft_state(model, seed):
+    """A ``state_dict`` for ``model`` from a seeded generator: He-normal
+    convolutions, batch-norm scales and variances in [0.5, 1.5], small
+    biases and means, and a flow head scaled down so that six iterations
+    move the flow by a few pixels, not hundreds."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for key, ref in model.state_dict().items():
+        shape = tuple(ref.shape)
+        if key.endswith("num_batches_tracked"):
+            value = torch.zeros(shape, dtype=torch.long)
+        elif ref.dim() == 4:
+            fan_in = shape[1] * shape[2] * shape[3]
+            value = torch.randn(shape, generator=gen) * (2.0 / fan_in) ** 0.5
+        elif key.endswith("running_var") or (
+                "BatchNorm" in key and key.endswith("weight")):
+            value = torch.rand(shape, generator=gen) + 0.5
+        else:
+            value = 0.1 * torch.randn(shape, generator=gen)
+        if "flow_conv2" in key:
+            value = 0.05 * value
+        state[key] = value
+    return state
+
+
+def flow_difference(a, b):
+    """(median, 99th percentile, max) over pixels of |a - b| in px."""
+    d = (a.float() - b.float()).abs().amax(-1).flatten().cpu().numpy()
+    return float(np.median(d)), float(np.percentile(d, 99)), float(d.max())
+
+
+def raft_phases(dev, card):
+    """Phase 5 (see the module docstring). Returns the lookup kernel's
+    entry for the kernels line."""
+    import dataclasses
+
+    from synthetic import Texture
+
+    from feature_tracker_tpu_torch.models import raft
+    from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
+        lookup_correlation_cuda,
+    )
+
+    # 5a. The kernel against its plain version.
+    cfg = raft.RaftConfig(max_iterations=RAFT_ITERS, low_memory=True,
+                          upsample_last_only=True)
+    radius, levels = cfg.correlation_radius, cfg.correlation_pyramid_levels
+    fh, fw, fc = RAFT_H // 8, RAFT_W // 8, cfg.feature_channels
+    serving = lookup_inputs(dev, 30, RAFT_B, fh, fw, fc, levels, spread=4.0)
+    shape = f"B={RAFT_B} {fh}x{fw} C={fc} L={levels} r={radius}"
+    errs = [compare_lookup(f"lookup serving shape {shape}, grid + N(0, 4 px)",
+                           *serving, radius),
+            compare_lookup(f"lookup {shape}, locations off the map",
+                           *lookup_inputs(dev, 31, RAFT_B, fh, fw, fc,
+                                          levels), radius),
+            compare_lookup("lookup B=2 13x22 C=16 L=3 r=3, off the map",
+                           *lookup_inputs(dev, 32, 2, 13, 22, 16, 3), 3),
+            compare_lookup("lookup B=1 13x22 C=96 L=2 r=4, off the map",
+                           *lookup_inputs(dev, 33, 1, 13, 22, 96, 2), 4)]
+
+    # 5b. The path at full width.
+    refs, curs = [], [[] for _ in RAFT_SHIFTS]
+    for item in range(RAFT_B):
+        tex = Texture(100 + item, n_waves=16, min_period=5.0,
+                      max_period=30.0)
+        refs.append(tex.render(RAFT_H, RAFT_W))
+        for cur, (dx, dy) in zip(curs, RAFT_SHIFTS):
+            cur.append(tex.render(RAFT_H, RAFT_W, warp=lambda x, y: (
+                x - dx, y - dy)))
+    ref = np.stack(refs)[..., None].astype(np.float32)
+    curs = [np.stack(c)[..., None].astype(np.float32) for c in curs]
+
+    model = raft.Raft(cfg, device="cuda")
+    state = random_raft_state(model, 40)
+    model.load_state_dict(state)
+    tf32_outside = (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32)
+    lookup_correlation_cuda.launches = 0
+    inputs = [(ref, curs[i % len(curs)]) for i in range(RAFT_CALLS)]
+    flows = [model(r, c) for r, c in inputs]
+    torch.cuda.synchronize()
+    launches = lookup_correlation_cuda.launches
+    check(launches == RAFT_ITERS * RAFT_CALLS,
+          f"raft: {launches} lookup launches in {RAFT_CALLS} calls of "
+          f"{RAFT_ITERS} iterations")
+    for flow in flows:
+        check(flow.shape == (1, RAFT_B, RAFT_H, RAFT_W, 2)
+              and flow.dtype == torch.float32 and flow.is_cuda,
+              f"raft: output {tuple(flow.shape)} {flow.dtype}")
+        check(bool(torch.isfinite(flow).all()), "raft: non-finite flow")
+    check(torch.equal(flows[0], flows[len(curs)]),
+          "raft: the same pair gave another flow the second time")
+    check(not torch.equal(flows[0], flows[1]),
+          "raft: two different pairs gave the same flow")
+    mags = [float(f.abs().mean()) for f in flows]
+    print(f"[raft] {RAFT_CALLS} calls {RAFT_W}x{RAFT_H} batch {RAFT_B}, full "
+          f"configuration, {RAFT_ITERS} iterations, low_memory: lookup "
+          f"launches={launches}; output {tuple(flows[0].shape)}; mean |flow| "
+          f"per call {', '.join(f'{m:.3f}' for m in mags)} px (random "
+          "weights)")
+
+    # The same model with the lookup forced to the plain version (which also
+    # records the TF32 switches inside forward), and with the volume.
+    tf32_inside = []
+
+    def plain_lookup(*args):
+        tf32_inside.append((torch.backends.cudnn.allow_tf32,
+                            torch.backends.cuda.matmul.allow_tf32))
+        return raft.lookup_correlation_otf(*args)
+
+    plain_model = raft.Raft(cfg, device="cuda")
+    plain_model.load_state_dict(state)
+    plain_model.lookup_fn = plain_lookup
+    full_model = raft.Raft(dataclasses.replace(cfg, low_memory=False),
+                           device="cuda")
+    full_model.load_state_dict(state)
+    before = lookup_correlation_cuda.launches
+    plain_flow = plain_model(*inputs[0])
+    torch.cuda.reset_peak_memory_stats()
+    full_flow = full_model(*inputs[0])
+    full_peak = torch.cuda.max_memory_allocated()
+    check(lookup_correlation_cuda.launches == before,
+          "raft: the plain and materialised routes launched the kernel")
+    check(set(tf32_inside) == {(False, False)}
+          and (torch.backends.cudnn.allow_tf32,
+               torch.backends.cuda.matmul.allow_tf32) == tf32_outside,
+          "raft: forward did not switch TF32 off and restore it")
+    print(f"[raft] forward ran with cudnn.allow_tf32=False, "
+          f"cuda.matmul.allow_tf32=False (outside it: cudnn "
+          f"{tf32_outside[0]}, matmul {tf32_outside[1]}, restored)")
+    for label, other in (("plain lookup", plain_flow),
+                         ("materialised volume", full_flow)):
+        med, p99, worst = flow_difference(flows[0], other)
+        print(f"[raft] float32 flow, kernel route against {label}: |dflow| "
+              f"median={med:.3g} p99={p99:.3g} max={worst:.3g} px (limit "
+              f"{RAFT_ROUTE_TOL})")
+        check(worst <= RAFT_ROUTE_TOL,
+              f"raft: kernel route and {label} differ by {worst} px")
+    print(f"[raft] materialised route peak memory "
+          f"{full_peak / 2 ** 20:.1f} MiB")
+    del plain_model, plain_flow, full_flow
+
+    # bfloat16, the configuration the JAX package's benchmark ships.
+    bf16_model = raft.Raft(dataclasses.replace(cfg, dtype=torch.bfloat16),
+                           device="cuda")
+    bf16_model.load_state_dict(state)
+    before = lookup_correlation_cuda.launches
+    bf16_flow = bf16_model(*inputs[0])
+    check(lookup_correlation_cuda.launches == before + RAFT_ITERS,
+          "raft bfloat16: lookup launches")
+    check(bf16_flow.dtype == torch.float32
+          and bool(torch.isfinite(bf16_flow).all()), "raft bfloat16: output")
+    med, p99, worst = flow_difference(flows[0], bf16_flow)
+    print(f"[raft] bfloat16 against float32 flow: |dflow| median={med:.3g} "
+          f"p99={p99:.3g} max={worst:.3g} px (limits median "
+          f"{RAFT_BF16_MEDIAN}, p99 {RAFT_BF16_P99})")
+    check(med <= RAFT_BF16_MEDIAN and p99 <= RAFT_BF16_P99,
+          f"raft bfloat16: median {med}, p99 {p99} px from float32")
+
+    # A compact model on the card against the same model on the CPU.
+    small = raft.RaftConfig(
+        max_iterations=3, low_memory=True, feature_channels=64,
+        context_channels=64, hidden_channels=32,
+        correlation_pyramid_levels=2, correlation_hidden_channels=32,
+        correlation_out_channels=16, flow_hidden_channels=16,
+        flow_out_channels=8, motion_out_channels=16, mask_hidden_channels=32)
+    small_gpu = raft.Raft(small, device="cuda")
+    small_cpu = raft.Raft(small, device="cpu")
+    small_state = random_raft_state(small_cpu, 41)
+    small_gpu.load_state_dict(small_state)
+    small_cpu.load_state_dict(small_state)
+    crop = (ref[:2, :64, :96], curs[0][:2, :64, :96])
+    _, _, worst = flow_difference(small_gpu(*crop).cpu(), small_cpu(*crop))
+    print(f"[raft] compact model 96x64 on the card against the CPU: max "
+          f"|dflow|={worst:.3g} px (limit {RAFT_CPU_TOL})")
+    check(worst <= RAFT_CPU_TOL, f"raft: card and CPU differ by {worst} px")
+
+    # 5c. Timings (the launches here are not the main path's).
+    def timed(fn, **kw):
+        with torch.inference_mode(), raft.full_float32():
+            return cuda_ms(fn, **kw)
+
+    f0, pyr, locs = serving
+    kernel_ms = cuda_ms(lambda: lookup_correlation_cuda(f0, pyr, locs,
+                                                        radius), batch=10)
+    call_ms = cuda_ms(lambda: lookup_correlation_cuda(f0, pyr, locs, radius))
+    plain_ms = cuda_ms(lambda: raft.lookup_correlation_otf(
+        f0, pyr, locs, radius), repeats=10, warmup=1)
+    nbytes, flops = lookup_work(f0, pyr, locs, radius)
+    bound_ms, bound_by = bound(nbytes, flops)
+    volume_ms = timed(lambda: raft.compute_correlation_pyramid(
+        f0, pyr[0], levels), repeats=10, warmup=2)
+    volume = raft.compute_correlation_pyramid(f0, pyr[0], levels)
+    sample_ms = timed(lambda: raft.lookup_correlation(volume, locs, radius),
+                      repeats=10, warmup=2)
+    del volume
+    library_ms = sample_ms + volume_ms / RAFT_ITERS
+    print(f"[time] raft lookup kernel {shape}: {kernel_ms:.4f} ms per launch "
+          f"back to back, {call_ms:.4f} ms per lone call; bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} FLOP)")
+    print(f"[time] raft lookup plain PyTorch version on the card: "
+          f"{plain_ms:.4f} ms")
+    print(f"[time] raft materialised route (two library calls, the nearest "
+          f"PyTorch has): all-pairs matmul and pooling once per call "
+          f"{volume_ms:.4f} ms, lookup_correlation {sample_ms:.4f} ms per "
+          f"iteration; {library_ms:.4f} ms per iteration at {RAFT_ITERS} "
+          "iterations")
+
+    ref_t = torch.from_numpy(ref).to(dev)
+    cur_t = torch.from_numpy(curs[0]).to(dev)
+    for label, mdl in (("float32", model), ("bfloat16", bf16_model)):
+        dt = mdl.cfg.dtype
+        img = (2.0 * (ref_t / 255.0) - 1.0).to(dt)
+        both = torch.cat([img, img])
+        fenc_ms = timed(lambda: mdl.feature_enc(both), repeats=5, warmup=1)
+        cenc_ms = timed(lambda: mdl.context_enc(img), repeats=5, warmup=1)
+        with torch.inference_mode():
+            net = torch.zeros(RAFT_B, fh, fw, cfg.hidden_channels, dtype=dt,
+                              device=dev)
+            inp = torch.zeros(RAFT_B, fh, fw, cfg.context_channels, dtype=dt,
+                              device=dev)
+            corr = lookup_correlation_cuda(f0, pyr, locs, radius).to(dt)
+            flow = torch.zeros(RAFT_B, fh, fw, 2, dtype=dt, device=dev)
+        update_ms = timed(lambda: mdl.UpdateBlock_0(net, inp, corr, flow),
+                          repeats=10, warmup=2)
+        whole_ms = cuda_ms(lambda: mdl(ref_t, cur_t), repeats=10, warmup=2)
+        print(f"[time] raft {label} {RAFT_W}x{RAFT_H} batch {RAFT_B}: "
+              f"feature encoder ({2 * RAFT_B} images) {fenc_ms:.4f} ms, context "
+              f"encoder ({RAFT_B} images) {cenc_ms:.4f} ms, one update block "
+              f"{update_ms:.4f} ms, whole call ({RAFT_ITERS} iterations) "
+              f"{whole_ms:.4f} ms = {whole_ms / RAFT_B:.4f} ms per frame")
+    # cuDNN's choice for the context encoder's widest float32 layers
+    # without TF32 is slow; PyTorch's own convolution is the yardstick.
+    img = 2.0 * (ref_t / 255.0) - 1.0
+    with torch.backends.cudnn.flags(enabled=False):
+        native_ms = timed(lambda: model.context_enc(img), repeats=5, warmup=1)
+    print(f"[time] raft float32 context encoder ({RAFT_B} images) with cuDNN "
+          f"switched off (PyTorch's own convolutions): {native_ms:.4f} ms")
+    # What TF32 would cost: the same encoder with cuDNN's default setting.
+    with torch.inference_mode():
+        with raft.full_float32():
+            exact = model.context_enc(img)
+        torch.backends.cudnn.allow_tf32 = True
+        tf32_ms = cuda_ms(lambda: model.context_enc(img), repeats=5, warmup=1)
+        tf32_err = float((model.context_enc(img) - exact).abs().max())
+        torch.backends.cudnn.allow_tf32 = tf32_outside[0]
+    print(f"[time] raft float32 context encoder with TF32 allowed in cuDNN: "
+          f"{tf32_ms:.4f} ms, output up to {tf32_err:.3g} from full float32 "
+          f"(values up to {float(exact.abs().max()):.3g})")
+    del exact
+    whole_full = cuda_ms(lambda: full_model(ref_t, cur_t), repeats=5,
+                         warmup=1)
+    print(f"[time] raft float32 with the materialised volume: whole call "
+          f"{whole_full:.4f} ms")
+    print(f"[time] card: {card}")
+    profile_window(f"raft float32 call {RAFT_W}x{RAFT_H} batch {RAFT_B}",
+                   lambda: model(ref_t, cur_t), calls=2)
+    profile_window(f"raft bfloat16 call {RAFT_W}x{RAFT_H} batch {RAFT_B}",
+                   lambda: bf16_model(ref_t, cur_t), calls=2)
+    return {
+        "name": "raft_lookup",
+        "route": "cuda",
+        "source": "feature_tracker_tpu_torch/csrc/raft_lookup.cu",
+        "replaces": "feature_tracker_tpu/ops/pallas_raft_lookup.py:158",
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": library_ms,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -395,7 +772,12 @@ def main() -> int:
     from synthetic import Texture, se2_pair, translated_pair
 
     from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
-    from feature_tracker_tpu_torch.ops import _build, cuda_klt, cuda_warp_klt
+    from feature_tracker_tpu_torch.ops import (
+        _build,
+        cuda_klt,
+        cuda_raft_lookup,
+        cuda_warp_klt,
+    )
     from feature_tracker_tpu_torch.ops.detect import detect_good_features
     from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
     from feature_tracker_tpu_torch.pipeline import (
@@ -430,11 +812,13 @@ def main() -> int:
     # nvcc per source, all started together.
     t0 = time.perf_counter()
     libraries = [cuda_klt.FAST_LIBRARY, cuda_klt.ITER_LIBRARY,
-                 cuda_warp_klt.AFFINE_LIBRARY, cuda_warp_klt.LSSD_LIBRARY]
+                 cuda_warp_klt.AFFINE_LIBRARY, cuda_warp_klt.LSSD_LIBRARY,
+                 cuda_raft_lookup.LOOKUP_LIBRARY]
     lib_paths = _build.build_libraries(libraries)
     for load in (cuda_klt.load_klt_library, cuda_klt.load_klt_iter_library,
                  cuda_warp_klt.load_affine_library,
-                 cuda_warp_klt.load_lssd_library):
+                 cuda_warp_klt.load_lssd_library,
+                 cuda_raft_lookup.load_lookup_library):
         load()
     print(f"[build] {len(lib_paths)} libraries ready in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
@@ -703,7 +1087,9 @@ def main() -> int:
     profile_window("front end per frame",
                    lambda: fe.process_frame(next(more)), calls=10)
 
-    check(len(kernels) == 4 and all(k["launches"] > 0 for k in kernels),
+    kernels.append(raft_phases(dev, card))
+
+    check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           "a kernel of the paths was not launched on its main path")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,6 +8,11 @@ tracker's warp predictions and the front end's track state:
   fe = TrackingFrontEnd(opts, tracker=tracker, device="cuda")
   fe.load_state_dict(front_end_state_from_jax(jax_front_end))
 
+RAFT's weights cross as a Flax variables tree of numpy arrays:
+
+  model = Raft(options_from_jax(jax_cfg), device="cuda")
+  model.load_state_dict(raft_state_from_jax(variables))
+
 Objects are matched by dataclass name and field names; arrays cross as
 numpy.
 """
@@ -16,8 +21,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from collections.abc import Mapping
 
 import numpy as np
+import torch
 
 from feature_tracker_tpu_torch.core.config import (
     HarrisOptions,
@@ -25,6 +32,7 @@ from feature_tracker_tpu_torch.core.config import (
     KltOptions,
     PyramidOptions,
 )
+from feature_tracker_tpu_torch.models.raft import RaftConfig
 from feature_tracker_tpu_torch.pipeline import FrontEndConfig
 from feature_tracker_tpu_torch.trackers.klt import (
     AffineKlt,
@@ -33,13 +41,15 @@ from feature_tracker_tpu_torch.trackers.klt import (
 )
 
 _PORT_CONFIGS = {cls.__name__: cls for cls in
-                 (KltOptions, HarrisOptions, PyramidOptions, FrontEndConfig)}
+                 (KltOptions, HarrisOptions, PyramidOptions, FrontEndConfig,
+                  RaftConfig)}
 
 
 def options_from_jax(obj):
     """The port's counterpart of a JAX ``KltOptions``, ``HarrisOptions``,
-    ``PyramidOptions`` or ``FrontEndConfig`` (nested configs included),
-    built field by field; ``KltMethod`` crosses by its ``.value``."""
+    ``PyramidOptions``, ``FrontEndConfig`` or ``RaftConfig`` (nested
+    configs included), built field by field; ``KltMethod`` crosses by its
+    ``.value``, a float dtype by its name."""
     if isinstance(obj, enum.Enum):
         if type(obj).__name__ != KltMethod.__name__:
             raise TypeError(f"no port counterpart for enum {type(obj)!r}")
@@ -56,7 +66,10 @@ def options_from_jax(obj):
         raise ValueError(f"{name} fields differ: only in JAX "
                          f"{sorted(theirs - ours)}, only in the port "
                          f"{sorted(ours - theirs)}")
-    return cls(**{f: options_from_jax(getattr(obj, f)) for f in theirs})
+    values = {f: options_from_jax(getattr(obj, f)) for f in theirs}
+    if "dtype" in values:
+        values["dtype"] = getattr(torch, np.dtype(values["dtype"]).name)
+    return cls(**values)
 
 
 def tracker_from_jax(jax_tracker, device="cuda"):
@@ -95,3 +108,51 @@ def front_end_state_from_jax(front_end) -> dict:
         "prev_pyramid": None if pyr is None else tuple(
             np.asarray(l, np.float32) for l in pyr),
     }
+
+
+# A Flax leaf's name as a ``state_dict`` name.
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "mean": "running_mean", "var": "running_var"}
+
+
+def flax_leaf_paths(tree, prefix=()):
+    """``(path, leaf)`` pairs of a nested mapping in Flax's flatten order
+    (keys sorted at every level)."""
+    if not isinstance(tree, Mapping):
+        return [(prefix, tree)]
+    return [pair for key in sorted(tree)
+            for pair in flax_leaf_paths(tree[key], prefix + (key,))]
+
+
+def raft_leaves_from_jax(variables):
+    """``(leaf path, state_dict key, tensor)`` for every leaf of a Flax
+    ``Raft`` variables tree; see :func:`raft_state_from_jax`."""
+    for path, leaf in flax_leaf_paths(variables):
+        where = "/".join(path)
+        if (len(path) < 3 or path[0] not in ("params", "batch_stats")
+                or path[-1] not in _LEAF_NAMES):
+            raise ValueError(f"unexpected leaf {where} in RAFT variables")
+        arr = np.array(leaf, np.float32)     # a copy the tensor may own
+        if path[-1] == "kernel":
+            if arr.ndim != 4:
+                raise ValueError(f"leaf {where}: kernel of shape "
+                                 f"{arr.shape}, expected [H, W, I, O]")
+            arr = arr.transpose(3, 2, 0, 1)
+        key = ".".join(path[1:-1]) + "." + _LEAF_NAMES[path[-1]]
+        yield where, key, torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def raft_state_from_jax(variables) -> dict:
+    """A Flax ``Raft`` variables tree (``{"params": ..., "batch_stats":
+    ...}``, nested mappings of arrays) as the ``state_dict`` of the port's
+    ``Raft``: a leaf's path under its collection is its key, convolution
+    kernels go from HWIO to OIHW, ``scale`` / ``mean`` / ``var`` become
+    ``weight`` / ``running_mean`` / ``running_var``, and every batch norm
+    gets a zero ``num_batches_tracked``."""
+    state = {}
+    for _, key, tensor in raft_leaves_from_jax(variables):
+        state[key] = tensor
+        if key.endswith(".running_mean"):
+            state[key[:-len("running_mean")] + "num_batches_tracked"] = (
+                torch.zeros((), dtype=torch.long))
+    return state

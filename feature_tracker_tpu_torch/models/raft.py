@@ -1,0 +1,488 @@
+"""RAFT optical flow, inference only — the counterpart of
+``feature_tracker_tpu/models/raft.py``.
+
+Same public names, argument order, layouts and return shapes as the Flax
+model: tensors are ``[B, H, W, C]`` at every public function and module,
+locations and flows are (x, y) pairs. Inside, a convolution sees its
+input as the ``[B, C, H, W]`` view of the same memory (channels last), so
+no layout copy is made between layers and the correlation lookup reads
+the feature maps as they lie.
+
+ - FeatureEncoder: conv7 stem -> 3 ResNet stages with stride 2 at each
+   stage end (output H/8 x W/8), channels c/4 -> c/2 -> 3c/4 -> c, conv3
+   out; the context encoder is the same trunk split into (context, hidden).
+ - Correlation: either the all-pairs volume <fmap0, fmap1>/sqrt(C), 2x2
+   average-pooled per level and sampled bilinearly with zero padding
+   (``compute_correlation_pyramid`` + ``lookup_correlation``), or
+   (``low_memory``) the pooled feature pyramid of the second image and
+   windowed correlations computed on the fly
+   (``ops/cuda_raft_lookup.py::lookup_correlation_cuda``: a hand-written
+   CUDA kernel for CUDA tensors, ``lookup_correlation_otf`` here for CPU
+   tensors).
+ - UpdateBlock: motion encoder, separable ConvGRU (horizontal then
+   vertical 1D kernels of 5), flow head, mask head scaled by 0.25.
+ - Convex upsampling: softmax over the 9 neighbours of the 8x-scaled flow.
+
+Submodules carry the Flax model's auto-generated names (``Conv_0``,
+``ResNetBlock_3``, ``UpdateBlock_0`` ...), so a checkpoint leaf's path is
+its ``state_dict`` key (``convert.py::raft_state_from_jax``).
+
+Precision: with ``dtype=torch.bfloat16`` parameters stay float32 and each
+layer computes in bfloat16, as Flax's ``dtype`` does; feature maps return
+to float32 before the correlation, the lookup's result is cast to
+``dtype``, locations stay float32, and the flow and mask heads' last
+convolutions compute in float32. ``Raft.forward`` runs with TF32 switched
+off for convolutions and matrix products and restores the caller's
+settings afterwards: TF32 keeps about three decimal digits, which the
+float32 model's agreement with the reference does not survive.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from feature_tracker_tpu_torch.core.device import resolve_device
+from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
+    correlation_scale,
+    lookup_correlation_cuda,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RaftConfig:
+    """Defaults are the full configuration."""
+
+    in_channels: int = 1
+    hidden_channels: int = 64
+    feature_channels: int = 128
+    context_channels: int = 128
+    correlation_pyramid_levels: int = 3
+    correlation_radius: int = 3
+    correlation_hidden_channels: int = 64
+    correlation_out_channels: int = 32
+    flow_hidden_channels: int = 32
+    flow_out_channels: int = 16
+    motion_out_channels: int = 32
+    mask_hidden_channels: int = 64
+    max_iterations: int = 5
+    # True: never materialize the [B*H*W, H, W] all-pairs volume; compute
+    # windowed correlations on the fly (O(HW) memory).
+    low_memory: bool = False
+    dtype: torch.dtype = torch.float32  # compute dtype (or bfloat16)
+    # True: only the final iteration's flow is upsampled and returned (the
+    # mask head still runs every iteration); the result has length 1.
+    upsample_last_only: bool = False
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Switch TF32 off for cuDNN convolutions and CUDA matrix products
+    inside the block, and restore the caller's settings after it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+class Conv(nn.Conv2d):
+    """Convolution on ``[B, H, W, C]`` with torch-style ``k // 2`` padding.
+    Parameters are float32; they and the input are cast to ``dtype`` for
+    the product."""
+
+    def __init__(self, in_features, features, kernel, stride=1,
+                 dtype=torch.float32):
+        kh, kw = (kernel, kernel) if isinstance(kernel, int) else kernel
+        super().__init__(in_features, features, (kh, kw), stride,
+                         padding=(kh // 2, kw // 2))
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
+                     self.bias.to(dt), self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """Batch normalisation on ``[B, H, W, C]`` by the running statistics
+    (inference only). Flax's ``momentum=0.9`` is ``momentum=0.1`` here."""
+
+    def __init__(self, features):
+        super().__init__(features, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
+                         self.running_var, self.weight, self.bias, False,
+                         0.0, self.eps)
+        return y.permute(0, 2, 3, 1)
+
+
+class ResNetBlock(nn.Module):
+    def __init__(self, in_features, features, stride=1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, features, 3, stride, dtype)
+        self.BatchNorm_0 = BatchNorm(features)
+        self.Conv_1 = Conv(features, features, 3, 1, dtype)
+        self.BatchNorm_1 = BatchNorm(features)
+        self.projects = stride != 1 or in_features != features
+        if self.projects:
+            self.Conv_2 = Conv(in_features, features, 1, stride, dtype)
+            self.BatchNorm_2 = BatchNorm(features)
+
+    def forward(self, x):
+        h = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        h = self.BatchNorm_1(self.Conv_1(h))
+        if self.projects:
+            x = self.BatchNorm_2(self.Conv_2(x))
+        return F.relu(h + x)
+
+
+class FeatureEncoder(nn.Module):
+    def __init__(self, in_channels, out_channels, dtype=torch.float32):
+        super().__init__()
+        step = out_channels // 4
+        self.Conv_0 = Conv(in_channels, step, 7, 1, dtype)
+        widths = (step, step, step * 2, step * 2, step * 3, step * 3,
+                  out_channels)
+        for i in range(6):
+            setattr(self, f"ResNetBlock_{i}",
+                    ResNetBlock(widths[i], widths[i + 1], 1 + i % 2, dtype))
+        self.Conv_1 = Conv(out_channels, out_channels, 3, 1, dtype)
+
+    def forward(self, x):
+        x = F.relu(self.Conv_0(x))
+        for i in range(6):
+            x = getattr(self, f"ResNetBlock_{i}")(x)
+        return F.relu(self.Conv_1(x))
+
+
+def _pool2x2(x):
+    """2x2 average over dims 1 and 2; an odd last row or column drops."""
+    h2 = (x.shape[1] // 2) * 2
+    w2 = (x.shape[2] // 2) * 2
+    return 0.25 * (x[:, 0:h2:2, 0:w2:2] + x[:, 1:h2:2, 0:w2:2]
+                   + x[:, 0:h2:2, 1:w2:2] + x[:, 1:h2:2, 1:w2:2])
+
+
+def compute_correlation_pyramid(fmap0, fmap1, num_levels: int):
+    """All-pairs correlation pyramid.
+
+    Args:
+      fmap0, fmap1: ``[B, H, W, C]``.
+
+    Returns:
+      list of ``[B*H*W, H_i, W_i]`` volumes (level 0 first).
+    """
+    b, h, w, c = fmap0.shape
+    f0 = fmap0.reshape(b, h * w, c)
+    f1 = fmap1.reshape(b, h * w, c)
+    corr = torch.einsum("bnc,bmc->bnm", f0, f1) / math.sqrt(c)
+    pyramid = [corr.reshape(b * h * w, h, w)]
+    for _ in range(num_levels - 1):
+        pyramid.append(_pool2x2(pyramid[-1]))
+    return pyramid
+
+
+def pool_feature_pyramid(fmap1, num_levels: int):
+    """Half-resolution 2x2-average pyramid of the SECOND image's feature
+    map. Correlation is linear in f1, so pooling the features first and
+    dotting later equals pooling the correlation volume, without ever
+    materializing it. Returns list of ``[B, h_i, w_i, C]``."""
+    pyr = [fmap1]
+    for _ in range(num_levels - 1):
+        pyr.append(_pool2x2(pyr[-1]))
+    return pyr
+
+
+def _window_offsets(radius: int, like):
+    """``[(2r+1)^2, 2]`` integer (dx, dy) offsets, dy-major, dx-minor."""
+    d = torch.arange(-radius, radius + 1, dtype=like.dtype,
+                     device=like.device)
+    dxx, dyy = torch.meshgrid(d, d, indexing="xy")
+    return torch.stack([dxx.reshape(-1), dyy.reshape(-1)], dim=-1)
+
+
+def _bilinear_taps(pos, h: int, w: int):
+    """The four taps of bilinear sampling at ``pos [..., 2]`` (x, y) on an
+    ``h x w`` map: ``(yi, xi, weight, ok)`` each ``[...]``. ``ok`` is false
+    where the tap leaves the map; it is decided on the floored float, so a
+    NaN or infinite position has no valid tap, and its indices read 0."""
+    x0 = torch.floor(pos[..., 0])
+    y0 = torch.floor(pos[..., 1])
+    fx = pos[..., 0] - x0
+    fy = pos[..., 1] - y0
+    taps = []
+    for yf, xf, wgt in ((y0, x0, (1 - fy) * (1 - fx)),
+                        (y0, x0 + 1, (1 - fy) * fx),
+                        (y0 + 1, x0, fy * (1 - fx)),
+                        (y0 + 1, x0 + 1, fy * fx)):
+        ok = (yf >= 0) & (yf <= h - 1) & (xf >= 0) & (xf <= w - 1)
+        zero = torch.zeros_like(yf)
+        taps.append((torch.where(ok, yf, zero).long(),
+                     torch.where(ok, xf, zero).long(), wgt, ok))
+    return taps
+
+
+def lookup_correlation_otf(fmap0, fmap1_pyramid, locations, radius: int):
+    """Memory-light correlation lookup: the windowed correlations computed
+    on the fly instead of sampled from a precomputed all-pairs volume.
+    Numerically equal to compute_correlation_pyramid + lookup_correlation,
+    because pooling commutes with the dot product and both use zero-padded
+    bilinear taps. This is the plain version of the CUDA kernel behind
+    ``lookup_correlation_cuda``.
+
+    Args:
+      fmap0: ``[B, H, W, C]``; fmap1_pyramid: list of ``[B, h, w, C]``;
+      locations: ``[B, H, W, 2]`` (x, y) at level-0 scale.
+
+    Returns:
+      ``[B, H, W, L*(2r+1)^2]``, level-major, then dy-major, dx-minor.
+    """
+    b, h, w, c = fmap0.shape
+    k = 2 * radius + 1
+    f0 = fmap0.reshape(b, h * w, c) * correlation_scale(c)
+    offsets = _window_offsets(radius, locations)
+    centers = locations.reshape(b, h * w, 2)
+    batch = torch.arange(b, device=fmap0.device)[:, None]
+    out = []
+    for lvl, f1 in enumerate(fmap1_pyramid):
+        base = centers / (2.0 ** lvl)
+        corr = []
+        for off in offsets:
+            total = 0.0
+            for yi, xi, wgt, ok in _bilinear_taps(base + off, f1.shape[1],
+                                                  f1.shape[2]):
+                rows = f1[batch, yi, xi]                      # [B, HW, C]
+                dot = (f0 * rows).sum(-1)
+                total = total + torch.where(ok, wgt * dot,
+                                            torch.zeros_like(dot))
+            corr.append(total)                                # [B, HW]
+        out.append(torch.stack(corr, dim=-1).reshape(b, h, w, k * k))
+    return torch.cat(out, dim=-1)
+
+
+def _bilinear_zeros(vol, pos):
+    """Bilinear sample with zero padding (each out-of-range tap
+    contributes 0).
+
+    Args:
+      vol: ``[M, h, w]``.
+      pos: ``[M, K, 2]`` (x, y) pixel coordinates.
+
+    Returns:
+      ``[M, K]``.
+    """
+    m = torch.arange(vol.shape[0], device=vol.device)[:, None]
+    total = 0.0
+    for yi, xi, wgt, ok in _bilinear_taps(pos, vol.shape[1], vol.shape[2]):
+        v = vol[m, yi, xi]
+        total = total + torch.where(ok, v * wgt, torch.zeros_like(v))
+    return total
+
+
+def lookup_correlation(pyramid: Sequence, locations, radius: int):
+    """Sample (2r+1)^2 windows around ``locations/2^level`` per level.
+
+    Args:
+      pyramid: list of ``[B*H*W, h_i, w_i]``.
+      locations: ``[B, H, W, 2]`` current pixel locations (x, y).
+
+    Returns:
+      ``[B, H, W, L*(2r+1)^2]`` correlation features.
+    """
+    b, h, w, _ = locations.shape
+    k = 2 * radius + 1
+    offsets = _window_offsets(radius, locations)
+    centers = locations.reshape(b * h * w, 1, 2)
+    out = []
+    for i, vol in enumerate(pyramid):
+        pos = centers / (2.0 ** i) + offsets[None, :, :]
+        out.append(_bilinear_zeros(vol, pos).reshape(b, h, w, k * k))
+    return torch.cat(out, dim=-1)
+
+
+class SepConvGru(nn.Module):
+    def __init__(self, in_features, hidden, kernel=5, dtype=torch.float32):
+        super().__init__()
+        for direction, shape in (("h", (1, kernel)), ("v", (kernel, 1))):
+            for gate in "zrq":
+                setattr(self, f"conv_{gate}_{direction}",
+                        Conv(in_features + hidden, hidden, shape, 1, dtype))
+
+    def forward(self, x, h):
+        for d in "hv":
+            xh = torch.cat([x, h], dim=-1)
+            z = torch.sigmoid(getattr(self, f"conv_z_{d}")(xh))
+            r = torch.sigmoid(getattr(self, f"conv_r_{d}")(xh))
+            q = torch.tanh(getattr(self, f"conv_q_{d}")(
+                torch.cat([x, r * h], dim=-1)))
+            h = (1 - z) * h + z * q
+        return h
+
+
+class MotionEncoder(nn.Module):
+    def __init__(self, cfg: RaftConfig):
+        super().__init__()
+        c, dt = cfg, cfg.dtype
+        k = 2 * c.correlation_radius + 1
+        self.Conv_0 = Conv(c.correlation_pyramid_levels * k * k,
+                           c.correlation_hidden_channels, 1, 1, dt)
+        self.Conv_1 = Conv(c.correlation_hidden_channels,
+                           c.correlation_out_channels, 3, 1, dt)
+        self.Conv_2 = Conv(2, c.flow_hidden_channels, 7, 1, dt)
+        self.Conv_3 = Conv(c.flow_hidden_channels, c.flow_out_channels, 3, 1,
+                           dt)
+        self.Conv_4 = Conv(c.correlation_out_channels + c.flow_out_channels,
+                           c.motion_out_channels - 2, 3, 1, dt)
+
+    def forward(self, corr, flow):
+        t_corr = F.relu(self.Conv_1(F.relu(self.Conv_0(corr))))
+        t_flow = F.relu(self.Conv_3(F.relu(self.Conv_2(flow))))
+        out = F.relu(self.Conv_4(torch.cat([t_corr, t_flow], dim=-1)))
+        return torch.cat([out, flow], dim=-1)
+
+
+class UpdateBlock(nn.Module):
+    """``(net, inp, corr, flow) -> (net, 0.25 * mask, delta)``; ``mask``
+    and ``delta`` are float32 whatever ``cfg.dtype`` is."""
+
+    def __init__(self, cfg: RaftConfig):
+        super().__init__()
+        c, dt = cfg, cfg.dtype
+        self.MotionEncoder_0 = MotionEncoder(c)
+        self.SepConvGru_0 = SepConvGru(
+            c.context_channels + c.motion_out_channels, c.hidden_channels, 5,
+            dt)
+        self.flow_conv1 = Conv(c.hidden_channels, c.flow_out_channels, 3, 1,
+                               dt)
+        self.flow_conv2 = Conv(c.flow_out_channels, 2, 3, 1, torch.float32)
+        self.mask_hidden = Conv(c.hidden_channels, c.mask_hidden_channels, 3,
+                                1, dt)
+        self.mask_out = Conv(c.mask_hidden_channels, 8 * 8 * 9, 1, 1,
+                             torch.float32)
+
+    def forward(self, net, inp, corr, flow):
+        motion = self.MotionEncoder_0(corr, flow)
+        net = self.SepConvGru_0(torch.cat([inp, motion], dim=-1), net)
+        delta = self.flow_conv2(F.relu(self.flow_conv1(net)))
+        mask = self.mask_out(F.relu(self.mask_hidden(net)))
+        return net, 0.25 * mask, delta
+
+
+def upsample_flow_convex(flow, mask):
+    """Learned convex 8x upsampling.
+
+    Args:
+      flow: ``[B, H, W, 2]``; mask: ``[B, H, W, 576]``, the channels being
+      (neighbour, u, v) = (9, 8, 8).
+
+    Returns:
+      ``[B, 8H, 8W, 2]``.
+    """
+    b, h, w, _ = flow.shape
+    mask = torch.softmax(mask.reshape(b, h, w, 9, 8, 8), dim=3)
+    # 3x3 neighbourhoods of 8*flow with zero padding, i-major, j-minor.
+    fpad = F.pad(8.0 * flow, (0, 0, 1, 1, 1, 1))
+    up = 0.0
+    for n, (i, j) in enumerate((i, j) for i in range(3) for j in range(3)):
+        neigh = fpad[:, i:i + h, j:j + w, None, None, :]    # [B,H,W,1,1,2]
+        up = up + neigh * mask[:, :, :, n, :, :, None]      # [B,H,W,8,8,2]
+    return up.permute(0, 1, 3, 2, 4, 5).reshape(b, 8 * h, 8 * w, 2)
+
+
+class Raft(nn.Module):
+    """Full RAFT for inference. ``forward(ref_image, cur_image)`` takes
+    images ``[B, H, W, C]`` with 0..255 gray values (tensors or numpy
+    arrays) and returns the per-iteration upsampled flows
+    ``[T, B, 8H', 8W', 2]`` with channels (dx, dy); ``T`` is 1 with
+    ``cfg.upsample_last_only``.
+
+    The model runs on ``device`` (default ``"cuda"``; raises without a GPU
+    unless ``device="cpu"``) in ``eval()`` mode. With ``cfg.low_memory`` the
+    per-iteration lookup goes through ``lookup_fn``, which is
+    ``lookup_correlation_cuda``: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+
+    def __init__(self, cfg: RaftConfig = RaftConfig(), device="cuda"):
+        super().__init__()
+        if cfg.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype must be float32 or bfloat16, got "
+                             f"{cfg.dtype}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.lookup_fn = lookup_correlation_cuda
+        self.feature_enc = FeatureEncoder(cfg.in_channels,
+                                          cfg.feature_channels, cfg.dtype)
+        self.context_enc = FeatureEncoder(
+            cfg.in_channels, cfg.context_channels + cfg.hidden_channels,
+            cfg.dtype)
+        self.UpdateBlock_0 = UpdateBlock(cfg)
+        self.to(self.device).to(memory_format=torch.channels_last)
+        self.eval()
+
+    def forward(self, ref_image, cur_image):
+        with torch.inference_mode(), full_float32():
+            return self._forward(ref_image, cur_image)
+
+    def _forward(self, ref_image, cur_image):
+        c = self.cfg
+        ref, cur = (
+            (2.0 * (torch.as_tensor(img, dtype=torch.float32,
+                                    device=self.device) / 255.0)
+             - 1.0).to(c.dtype) for img in (ref_image, cur_image))
+        b = ref.shape[0]
+
+        # Both images in one pass: the statistics are the running ones, so
+        # the batch does not couple its items.
+        fmaps = self.feature_enc(torch.cat([ref, cur])).float().contiguous()
+        fmap0, fmap1 = fmaps[:b], fmaps[b:]
+        ctx = self.context_enc(ref)
+        inp = ctx[..., :c.context_channels]
+        net = ctx[..., c.context_channels:]
+
+        if c.low_memory:
+            fpyr = [f.contiguous() for f in pool_feature_pyramid(
+                fmap1, c.correlation_pyramid_levels)]
+        else:
+            pyramid = compute_correlation_pyramid(
+                fmap0, fmap1, c.correlation_pyramid_levels)
+
+        _, h, w, _ = fmap0.shape
+        xs = torch.arange(w, dtype=torch.float32, device=self.device)
+        ys = torch.arange(h, dtype=torch.float32, device=self.device)
+        gx, gy = torch.meshgrid(xs, ys, indexing="xy")
+        ref_locs = torch.stack([gx, gy], dim=-1)[None].expand(
+            b, h, w, 2).contiguous()
+
+        cur_locs = ref_locs
+        predictions = []
+        for _ in range(c.max_iterations):
+            if c.low_memory:
+                corr = self.lookup_fn(fmap0, fpyr, cur_locs,
+                                      c.correlation_radius)
+            else:
+                corr = lookup_correlation(pyramid, cur_locs,
+                                          c.correlation_radius)
+            flow = (cur_locs - ref_locs).to(c.dtype)
+            net, up_mask, delta = self.UpdateBlock_0(
+                net, inp, corr.to(c.dtype), flow)
+            cur_locs = cur_locs + delta.float()
+            if not c.upsample_last_only:
+                predictions.append(
+                    upsample_flow_convex(cur_locs - ref_locs, up_mask))
+        if c.upsample_last_only:
+            return upsample_flow_convex(cur_locs - ref_locs, up_mask)[None]
+        return torch.stack(predictions)

@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
+from feature_tracker_tpu_torch.models import raft
 from feature_tracker_tpu_torch.ops import cuda_klt, cuda_warp_klt
+from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
+    lookup_correlation_cuda,
+)
 from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
 from feature_tracker_tpu_torch.trackers.klt import (
     AffineKlt,
@@ -30,6 +34,7 @@ from feature_tracker_tpu_torch.trackers.klt.lssd import (
     lssd_track_level_reference,
 )
 
+from chip_smoke import lookup_inputs
 from synthetic import se2_pair, translated_pair
 
 pytestmark = pytest.mark.cuda
@@ -346,3 +351,90 @@ def test_inputs_the_new_kernels_cannot_take_raise(pair):
     with pytest.raises(RuntimeError, match="launch failed"):
         ls(KltOptions(**huge), True, rp[0], cp[0], uv, eye.contiguous(), uv,
            skip)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+# The serving shape's channels on a small map; the JAX test's odd sizes;
+# C=96 with r=4 (a grid of 100: four chunks, the last of 4); C not a
+# multiple of 4 (scalar reads) and radius 0; 3*7*9 = 189 queries, not a
+# multiple of the block's warps.
+@pytest.mark.parametrize("shape,radius,levels", [((2, 16, 24, 128), 3, 3),
+                                                 ((2, 13, 22, 16), 3, 3),
+                                                 ((1, 13, 22, 96), 4, 2),
+                                                 ((1, 9, 11, 5), 0, 2),
+                                                 ((3, 7, 9, 12), 2, 1)])
+def test_raft_lookup_kernel_matches_plain_version(card, shape, radius,
+                                                  levels):
+    f0, pyr, locs = lookup_inputs(card, 20, *shape, levels)
+    before = lookup_correlation_cuda.launches
+    got = lookup_correlation_cuda(f0, pyr, locs, radius)
+    torch.cuda.synchronize()
+    assert lookup_correlation_cuda.launches == before + 1
+    want = raft.lookup_correlation_otf(f0, pyr, locs, radius)
+    k = 2 * radius + 1
+    assert got.shape == want.shape == shape[:3] + (levels * k * k,)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    # Only the order of the sum over channels differs (and the last bits of
+    # the fraction, floored once here and per offset there).
+    assert ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all(), (
+        (got - want).abs().max())
+    assert (got[0, 0, :5] == 0).all() and (got[-1, -1, -3:] == 0).all()
+    assert (want[0, 0, :5] == 0).all()
+    # The materialised volume gives the same samples.
+    f1 = pyr[0]
+    mat = raft.lookup_correlation(
+        raft.compute_correlation_pyramid(f0, f1, levels), locs, radius)
+    assert ((got - mat).abs() <= 1e-4 + 1e-4 * mat.abs()).all()
+
+
+def test_raft_on_cuda_matches_cpu(card):
+    cfg = raft.RaftConfig(
+        max_iterations=3, low_memory=True, feature_channels=64,
+        context_channels=64, hidden_channels=32,
+        correlation_pyramid_levels=2, correlation_hidden_channels=32,
+        correlation_out_channels=16, flow_hidden_channels=16,
+        flow_out_channels=8, motion_out_channels=16,
+        mask_hidden_channels=32)
+    torch.manual_seed(21)
+    cpu = raft.Raft(cfg, device="cpu")
+    gpu = raft.Raft(cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(22)
+    base = rng.uniform(0, 255, (2, 72, 104)).astype(np.float32)
+    ref, cur = base[:, 4:68, 4:100, None], base[:, 5:69, 2:98, None]
+    before = lookup_correlation_cuda.launches
+    got = gpu(ref, cur)
+    assert lookup_correlation_cuda.launches == before + 3
+    assert got.is_cuda and got.shape == (3, 2, 64, 96, 2)
+    want = cpu(ref, cur)
+    # float32 with TF32 off on both sides: sums in another order only.
+    assert (got.cpu() - want).abs().max() <= 1e-3
+
+
+def test_raft_lookup_inputs_the_kernel_cannot_take_raise(card):
+    f0, pyr, locs = lookup_inputs(card, 23, 1, 8, 8, 8, 2, spread=1.0)
+    before = lookup_correlation_cuda.launches
+    with pytest.raises(ValueError, match="contiguous float32"):
+        lookup_correlation_cuda(f0.double(), pyr, locs, 2)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        lookup_correlation_cuda(f0, pyr, locs.cpu(), 2)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        lookup_correlation_cuda(f0.permute(0, 2, 1, 3), pyr,
+                                locs.permute(0, 2, 1, 3).contiguous(), 2)
+    with pytest.raises(ValueError, match="locations"):
+        lookup_correlation_cuda(f0, pyr, locs[:, :4], 2)
+    with pytest.raises(ValueError, match="pyramid level"):
+        lookup_correlation_cuda(f0, [pyr[0][..., :4].contiguous()], locs, 2)
+    with pytest.raises(ValueError, match="levels"):
+        lookup_correlation_cuda(f0, pyr * 5, locs, 2)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        lookup_correlation_cuda(f0, pyr, locs, 200)   # grid > shared memory
+    empty = lookup_correlation_cuda(f0[:0], [p[:0] for p in pyr], locs[:0], 2)
+    assert empty.shape == (0, 8, 8, 50)
+    assert lookup_correlation_cuda.launches == before

@@ -1,0 +1,411 @@
+"""CPU parity of the port's RAFT with the JAX package.
+
+The same numpy inputs (made from a seed) go through the JAX function and
+its counterpart in feature_tracker_tpu_torch, on the CPU. Weights are
+initialised by the Flax model, perturbed with numpy so that no bias, scale
+or statistic is trivial, and carried over by ``raft_state_from_jax``.
+
+Tolerances, and what was observed on the CPU when they were set:
+  - correlation pyramid, pooled pyramid, convex upsampling: rtol/atol 1e-5
+    (sums of <= 16 products in another order);
+  - both lookups: rtol/atol 1e-4, the limit the JAX package's own tests
+    hold its Pallas kernel to (observed <= 8e-6);
+  - encoder and update block: 2e-5 absolute on outputs of order 1
+    (observed <= 3e-6: the convolutions sum in another order); the update
+    block in bfloat16 3e-2 (observed 1.6e-2: bfloat16 keeps 8 bits);
+  - whole model, float32: max |dflow| <= 1e-4 px (observed 3.1e-6 px);
+  - whole model, bfloat16 against JAX bfloat16, and against the port's own
+    float32 flow: 99 % of the pixels within 0.1 px and all within 0.25 px
+    (observed 0.015 / 0.016 px: the two frameworks round at other places
+    and every iteration feeds the difference back);
+  - held-out EPE of the shipped compact weights: within 2e-3 of the JAX
+    model's on the same CPU (see the test for the recorded values).
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from feature_tracker_tpu.models import raft as jax_raft
+from feature_tracker_tpu.ops.pallas_raft_lookup import (
+    lookup_correlation_pallas_batched,
+)
+from feature_tracker_tpu.utils import weights as jax_weights
+from feature_tracker_tpu_torch.convert import (
+    options_from_jax,
+    raft_state_from_jax,
+)
+from feature_tracker_tpu_torch.models import raft
+from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
+    lookup_correlation_cuda,
+)
+from feature_tracker_tpu_torch.train.raft_eval import flow_metrics
+from feature_tracker_tpu_torch.utils.weights import (
+    has_weights,
+    load_raft_npz,
+    weights_path,
+)
+
+COMPACT = dict(feature_channels=64, context_channels=64, hidden_channels=32,
+               correlation_pyramid_levels=2, correlation_radius=3,
+               correlation_hidden_channels=32, correlation_out_channels=16,
+               flow_hidden_channels=16, flow_out_channels=8,
+               motion_out_channels=16, mask_hidden_channels=32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _features(seed, b, h, w, c, levels):
+    rng = np.random.default_rng(seed)
+    f0 = rng.normal(0, 1, (b, h, w, c)).astype(np.float32)
+    f1 = rng.normal(0, 1, (b, h, w, c)).astype(np.float32)
+    # Whole windows and single taps leave the map.
+    locs = rng.uniform(-6, max(h, w) + 6, (b, h, w, 2)).astype(np.float32)
+    return f0, f1, locs
+
+
+def test_correlation_pyramid_matches_jax():
+    f0, f1, _ = _features(0, 2, 7, 5, 16, 3)
+    want = jax_raft.compute_correlation_pyramid(jnp.asarray(f0),
+                                                jnp.asarray(f1), 3)
+    got = raft.compute_correlation_pyramid(_t(f0), _t(f1), 3)
+    assert [tuple(g.shape) for g in got] == [(70, 7, 5), (70, 3, 2),
+                                             (70, 1, 1)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_pool_feature_pyramid_matches_jax():
+    _, f1, _ = _features(1, 2, 13, 22, 8, 3)
+    want = jax_raft.pool_feature_pyramid(jnp.asarray(f1), 3)
+    got = raft.pool_feature_pyramid(_t(f1), 3)
+    assert [tuple(g.shape) for g in got] == [(2, 13, 22, 8), (2, 6, 11, 8),
+                                             (2, 3, 5, 8)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("radius", [0, 2, 3])
+def test_lookup_correlation_matches_jax(radius):
+    f0, f1, locs = _features(2, 2, 9, 14, 8, 3)
+    jpyr = jax_raft.compute_correlation_pyramid(jnp.asarray(f0),
+                                                jnp.asarray(f1), 3)
+    want = jax_raft.lookup_correlation(jpyr, jnp.asarray(locs), radius)
+    got = raft.lookup_correlation([_t(v) for v in jpyr], _t(locs), radius)
+    k = 2 * radius + 1
+    assert got.shape == (2, 9, 14, 3 * k * k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("radius,levels,shape", [(3, 3, (2, 13, 22, 16)),
+                                                 (1, 2, (1, 8, 8, 5)),
+                                                 (4, 2, (1, 6, 9, 12))])
+def test_lookup_correlation_otf_matches_jax(radius, levels, shape):
+    f0, f1, locs = _features(3, *shape, levels)
+    jpyr = jax_raft.pool_feature_pyramid(jnp.asarray(f1), levels)
+    want = jax_raft.lookup_correlation_otf(jnp.asarray(f0), jpyr,
+                                           jnp.asarray(locs), radius)
+    pyr = raft.pool_feature_pyramid(_t(f1), levels)
+    got = raft.lookup_correlation_otf(_t(f0), pyr, _t(locs), radius)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    # The wrapper takes the plain version for CPU tensors, and counts no
+    # launch for it.
+    before = lookup_correlation_cuda.launches
+    assert torch.equal(lookup_correlation_cuda(_t(f0), pyr, _t(locs), radius),
+                       got)
+    assert lookup_correlation_cuda.launches == before
+    # Both routes of the port agree, as the JAX package's do.
+    mat = raft.lookup_correlation(
+        raft.compute_correlation_pyramid(_t(f0), _t(f1), levels), _t(locs),
+        radius)
+    np.testing.assert_allclose(got.numpy(), mat.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_lookup_otf_matches_pallas_kernel_in_interpret_mode():
+    f0, f1, locs = _features(4, 2, 13, 22, 16, 3)
+    jpyr = jax_raft.pool_feature_pyramid(jnp.asarray(f1), 3)
+    want = lookup_correlation_pallas_batched(
+        jnp.asarray(f0), jpyr, jnp.asarray(locs), 3, interpret=True)
+    got = raft.lookup_correlation_otf(
+        _t(f0), raft.pool_feature_pyramid(_t(f1), 3), _t(locs), 3)
+    assert got.shape == (2, 13, 22, 3 * 49)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_lookup_of_runaway_locations_is_zero():
+    f0, f1, locs = _features(5, 1, 6, 7, 4, 2)
+    locs[0, 0, :4, 0] = [np.nan, np.inf, -np.inf, 1e9]
+    locs[0, 1, :2, 1] = [np.nan, -1e9]
+    pyr = raft.pool_feature_pyramid(_t(f1), 2)
+    otf = raft.lookup_correlation_otf(_t(f0), pyr, _t(locs), 2)
+    mat = raft.lookup_correlation(
+        raft.compute_correlation_pyramid(_t(f0), _t(f1), 2), _t(locs), 2)
+    for out in (otf, mat):
+        assert torch.isfinite(out).all()
+        assert (out[0, 0, :4] == 0).all() and (out[0, 1, :2] == 0).all()
+        assert (out[0, 2:] != 0).any()
+
+
+def test_upsample_flow_convex_matches_jax():
+    rng = np.random.default_rng(6)
+    flow = rng.normal(0, 3, (2, 5, 7, 2)).astype(np.float32)
+    mask = rng.normal(0, 2, (2, 5, 7, 576)).astype(np.float32)
+    want = jax_raft.upsample_flow_convex(jnp.asarray(flow), jnp.asarray(mask))
+    got = raft.upsample_flow_convex(_t(flow), _t(mask))
+    assert got.shape == (2, 40, 56, 2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _perturbed(variables, seed):
+    """Flax variables as nested dicts of numpy arrays, with every bias,
+    scale and running statistic made non-trivial (Flax initialises them to
+    0 and 1)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = path[-1].key
+        x = np.asarray(x, np.float32)
+        if name in ("bias", "mean"):
+            return rng.normal(0, 0.1, x.shape).astype(np.float32)
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
+        return x
+
+    return jax.tree_util.tree_map_with_path(leaf, jax.device_get(variables))
+
+
+def test_feature_encoder_matches_jax():
+    rng = np.random.default_rng(7)
+    x = rng.uniform(-1, 1, (2, 40, 56, 1)).astype(np.float32)
+    jenc = jax_raft.FeatureEncoder(32)
+    variables = _perturbed(jax.jit(jenc.init, static_argnums=2)(
+        jax.random.PRNGKey(0), jnp.asarray(x), False), 8)
+    want = jenc.apply(variables, jnp.asarray(x), False)
+    enc = raft.FeatureEncoder(1, 32).eval()
+    enc.load_state_dict(raft_state_from_jax(variables))
+    with torch.no_grad():
+        got = enc(_t(x))
+    assert got.shape == (2, 5, 7, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_update_block_matches_jax(dtype):
+    jcfg = jax_raft.RaftConfig(dtype=getattr(jnp, dtype), **COMPACT)
+    cfg = options_from_jax(jcfg)
+    assert cfg.dtype == getattr(torch, dtype)
+    rng = np.random.default_rng(9)
+    net, inp, corr, flow = (
+        rng.normal(0, 1, (2, 6, 8, c)).astype(np.float32)
+        for c in (32, 64, 2 * 49, 2))
+    args = [jnp.asarray(a, jcfg.dtype) for a in (net, inp, corr, flow)]
+    jblock = jax_raft.UpdateBlock(jcfg)
+    variables = _perturbed(jax.jit(jblock.init)(jax.random.PRNGKey(1),
+                                                *args), 10)
+    want = jblock.apply(variables, *args)
+    block = raft.UpdateBlock(cfg).eval()
+    block.load_state_dict(raft_state_from_jax(variables))
+    with torch.no_grad():
+        got = block(*(_t(a).to(cfg.dtype) for a in (net, inp, corr, flow)))
+    assert got[0].dtype == cfg.dtype
+    assert got[1].dtype == got[2].dtype == torch.float32
+    assert got[1].shape == (2, 6, 8, 576) and got[2].shape == (2, 6, 8, 2)
+    # bfloat16 keeps 8 bits: 3e-2 on values of order 1.
+    atol = 2e-5 if dtype == "float32" else 3e-2
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   rtol=0, atol=atol)
+
+
+@pytest.fixture(scope="module")
+def pair_and_weights():
+    rng = np.random.default_rng(11)
+    base = rng.uniform(0, 255, (2, 56, 72)).astype(np.float32)
+    # Smooth a little so that the pair has structure at 1/8 resolution.
+    base = 0.25 * (base + np.roll(base, 1, 1) + np.roll(base, 1, 2)
+                   + np.roll(base, (1, 1), (1, 2)))
+    ref = base[:, 4:52, 4:68, None]
+    cur = base[:, 6:54, 3:67, None]
+    jcfg = jax_raft.RaftConfig(max_iterations=2, **COMPACT)
+    variables = jax.jit(jax_raft.Raft(jcfg).init)(
+        jax.random.PRNGKey(2), jnp.asarray(ref), jnp.asarray(cur))
+    return ref, cur, jcfg, _perturbed(variables, 12)
+
+
+@pytest.mark.parametrize("low_memory", [False, True])
+@pytest.mark.parametrize("last_only", [False, True])
+def test_raft_matches_jax(pair_and_weights, low_memory, last_only):
+    ref, cur, jcfg, variables = pair_and_weights
+    jcfg = dataclasses.replace(jcfg, low_memory=low_memory,
+                               upsample_last_only=last_only)
+    want = np.asarray(jax_raft.Raft(jcfg).apply(
+        variables, jnp.asarray(ref), jnp.asarray(cur)))
+    model = raft.Raft(options_from_jax(jcfg), device="cpu")
+    model.load_state_dict(raft_state_from_jax(variables))
+    assert not model.training
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    got = model(ref, cur)
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == tf32
+    assert got.shape == want.shape == (1 if last_only else 2, 2, 48, 64, 2)
+    assert np.abs(want).max() > 0.5     # the flow is not trivially small
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 1e-4, err
+
+
+def test_raft_bfloat16_matches_jax_loosely(pair_and_weights):
+    ref, cur, jcfg, variables = pair_and_weights
+    jcfg = dataclasses.replace(jcfg, low_memory=True, upsample_last_only=True,
+                               dtype=jnp.bfloat16)
+    want = np.asarray(jax_raft.Raft(jcfg).apply(
+        variables, jnp.asarray(ref), jnp.asarray(cur)).astype(jnp.float32))
+    cfg = options_from_jax(jcfg)
+    state = raft_state_from_jax(variables)
+    model = raft.Raft(cfg, device="cpu")
+    model.load_state_dict(state)
+    got = model(ref, cur)
+    assert got.dtype == torch.float32 and got.shape == (1, 2, 48, 64, 2)
+    full = raft.Raft(dataclasses.replace(cfg, dtype=torch.float32),
+                     device="cpu")
+    full.load_state_dict(state)
+    for other in (want, full(ref, cur).numpy()):
+        err = np.abs(got.numpy() - other).max(axis=-1)
+        assert np.percentile(err, 99) <= 0.1 and err.max() <= 0.25, (
+            np.percentile(err, 99), err.max())
+
+
+def _jax_like(jcfg, size):
+    """Zero variables of the Flax model's structure (shapes by tracing
+    ``init``, which is quicker than running it)."""
+    zeros = jnp.zeros((1, size, size, 1))
+    shapes = jax.eval_shape(jax_raft.Raft(jcfg).init, jax.random.PRNGKey(0),
+                            zeros, zeros)
+    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                  shapes)
+
+
+@pytest.mark.parametrize("name,kw", [("raft.npz", {}),
+                                     ("raft_small.npz", COMPACT)])
+def test_load_raft_npz_matches_load_pytree(name, kw):
+    assert has_weights(name)
+    path = weights_path(name)
+    assert path == jax_weights.weights_path(name)
+    cfg = raft.RaftConfig(**kw)
+    state = load_raft_npz(path, cfg)
+    # Every leaf lands on a key of its own: 218 leaves and the 30 batch
+    # norms' counters.
+    with np.load(path) as data:
+        assert len(data.files) - 1 == 218
+    assert len(state) == 218 + 30
+    model = raft.Raft(cfg, device="cpu")
+    model.load_state_dict(state)      # strict: every key filled, none spare
+    want = raft_state_from_jax(jax.device_get(jax_weights.load_pytree(
+        path, _jax_like(jax_raft.RaftConfig(**kw), 32))))
+    assert state.keys() == want.keys()
+    for key, value in want.items():
+        assert torch.equal(state[key], value), key
+    assert sum(v.numel() for k, v in state.items()
+               if not k.endswith("num_batches_tracked")) == (
+        3435088 if name == "raft.npz" else 874984)
+
+
+def test_load_raft_npz_of_another_config_names_the_leaf():
+    with pytest.raises(ValueError, match=r"batch_stats/context_enc/"
+                       r"ResNetBlock_0/BatchNorm_0/mean.*\(24,\).*\(48,\)"):
+        load_raft_npz(weights_path("raft_small.npz"), raft.RaftConfig())
+    with pytest.raises(ValueError, match="UpdateBlock_0/MotionEncoder_0/"
+                       "Conv_0/kernel"):
+        load_raft_npz(weights_path("raft_small.npz"), raft.RaftConfig(
+            **{**COMPACT, "correlation_pyramid_levels": 3}))
+
+
+@pytest.mark.parametrize("iters", [6, 12])
+def test_shipped_compact_weights_reach_jax_epe(iters):
+    """Held-out EPE of ``weights/raft_small.npz`` on the 16 pairs that
+    ``weights/metrics.json`` ``raft_anytime`` was taken on. The values
+    recorded there (1.8975 at 6 iterations, 1.9501 at 12) come from a TPU,
+    whose default convolution precision is lower than float32: on the CPU
+    the JAX model itself gives 1.7609 and 1.7349, and that is what the port
+    is held to, within 2e-3 (observed 1e-7), besides staying clearly below
+    the recorded zero-flow EPE."""
+    from feature_tracker_tpu.train.raft_eval import flow_metrics as jax_fm
+    from feature_tracker_tpu.train.raft_pretrain import make_pool
+
+    with open(weights_path("metrics.json")) as fh:
+        anytime = json.load(fh)["raft_anytime"]
+    jcfg = jax_raft.RaftConfig(max_iterations=iters, **COMPACT)
+    variables = jax_weights.load_pytree(weights_path("raft_small.npz"),
+                                        _jax_like(jcfg, 64))
+    jmodel = jax.jit(jax_raft.Raft(jcfg).apply)
+    cfg = options_from_jax(jcfg)
+    model = raft.Raft(cfg, device="cpu")
+    model.load_state_dict(load_raft_npz(weights_path("raft_small.npz"), cfg))
+    pool = make_pool(np.random.default_rng(1000), 4, 64, 64, 4,
+                     augment=False)
+    epe = want = 0.0
+    for ref, cur, gt in pool:
+        flow = model(np.array(ref), np.array(cur))[-1]
+        epe += float(flow_metrics(flow, _t(gt))["epe"]) / len(pool)
+        want += float(jax_fm(jmodel(variables, ref, cur)[-1],
+                             gt)["epe"]) / len(pool)
+    assert abs(epe - want) <= 2e-3, (epe, want)
+    assert abs(want - {6: 1.7609, 12: 1.7349}[iters]) <= 2e-3, want
+    assert epe < 0.5 * anytime["zero_flow_epe"]
+
+
+def test_flow_metrics_match_jax():
+    from feature_tracker_tpu.train import raft_eval as jax_eval
+
+    rng = np.random.default_rng(13)
+    pred = rng.normal(0, 4, (2, 6, 7, 2)).astype(np.float32)
+    gt = rng.normal(0, 4, (2, 6, 7, 2)).astype(np.float32)
+    valid = rng.uniform(size=(2, 6, 7)) > 0.3
+    for v in (None, valid):
+        want = jax_eval.flow_metrics(jnp.asarray(pred), jnp.asarray(gt),
+                                     None if v is None else jnp.asarray(v))
+        got = flow_metrics(_t(pred), _t(gt), None if v is None else _t(v))
+        assert got.keys() == want.keys()
+        for key in want:
+            np.testing.assert_allclose(float(got[key]), float(want[key]),
+                                       rtol=1e-5, atol=1e-6)
+
+
+def test_raft_default_device_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        raft.Raft(raft.RaftConfig())
+    with pytest.raises(ValueError, match="dtype"):
+        raft.Raft(raft.RaftConfig(dtype=torch.float16), device="cpu")
+
+
+def test_raft_modules_import_no_jax():
+    code = ("import sys\n"
+            "import feature_tracker_tpu_torch.models.raft\n"
+            "import feature_tracker_tpu_torch.ops.cuda_raft_lookup\n"
+            "import feature_tracker_tpu_torch.utils.weights\n"
+            "import feature_tracker_tpu_torch.train.raft_eval\n"
+            "import feature_tracker_tpu_torch.convert\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'feature_tracker_tpu')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
