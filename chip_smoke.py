@@ -16,15 +16,17 @@ Phases (any failed check raises, so the exit code is non-zero):
      basic-KLT kernel (also at the front end's 300 features and with a
      31-row patch, wider than the TPU kernel's limit), the DIRECT / INVERSE
      basic-KLT kernel in both modes, the affine kernel through
-     ``AffineKlt.track`` and the SE(2) kernel through ``LssdKlt.track`` with
-     luminance off and on, the last two also on a pair rotated by 0.03 rad.
+     ``AffineKlt.track`` (one launch for the whole pyramid, held against the
+     plain level loop and, level by level, against its one-level case) and
+     the SE(2) kernel through ``LssdKlt.track`` with luminance off and on,
+     the last two also on a pair rotated by 0.03 rad.
   3. The main paths through the front end, each with the launch counts set
      to 0 just before and read just after:
      ``TrackingFrontEnd(FrontEndConfig(), device="cuda")`` over a 752x480
      sequence translating a little each frame (24 frames, one FAST launch
      per tracked frame), and over 8 frames each with
-     ``tracker=BasicKlt(method=INVERSE)`` (one launch per tracked frame),
-     ``AffineKlt`` and ``LssdKlt`` (one launch per level and tracked
+     ``tracker=BasicKlt(method=INVERSE)`` and ``AffineKlt`` (one launch per
+     tracked frame) and ``LssdKlt`` (one launch per level and tracked
      frame): live tracks kept, the median tracked flow equal to the true
      shift, track ids kept across frames.
   4. Timings with CUDA events (warm-up first, median of >= 20 samples),
@@ -34,7 +36,9 @@ Phases (any failed check raises, so the exit code is non-zero):
   5. RAFT inference. The correlation-lookup kernel against its plain
      version at the serving shape (batch 4, 55x128 queries, 128 channels,
      3 levels, radius 3), on locations that leave the map or are NaN,
-     infinite or 1e9, and at odd sizes. Then the path at full width:
+     infinite or 1e9, at odd sizes, channel counts and radii, on a tile
+     that straddles a motion boundary and on tiles whose windows lie too far
+     apart to stage. Then the path at full width:
      ``Raft(RaftConfig(max_iterations=6, low_memory=True,
      upsample_last_only=True), device="cuda")`` on 440x1024 textured pairs
      with a known shift, batch 4, weights from a seeded generator, the
@@ -43,7 +47,9 @@ Phases (any failed check raises, so the exit code is non-zero):
      with the materialised all-pairs volume must give the same flow; the
      bfloat16 model is held loosely against the float32 flow, and a compact
      model on the card against the same model on the CPU. Timings of the
-     kernel, its plain version, the materialised route, the encoders, one
+     kernel on the seeded noisy locations and on the locations of the
+     driven call's last iteration (with the share of tiles it staged in
+     shared memory), of its plain version, the materialised route, the encoders, one
      update iteration and whole calls in float32 and bfloat16.
 Then one JSON line with the kernels of the paths, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
@@ -57,6 +63,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -223,23 +230,23 @@ def p99_and_max(a, b, both):
 
 
 def compare_warp(label, tracker, rp, cp, uv, status=None):
-    """A warp tracker's ``track`` on the card (every level through its CUDA
-    kernel) against the same level loop through the plain versions.
+    """A warp tracker's ``track`` on the card (the affine tracker: one
+    launch for the whole pyramid; SE(2): one per level) against the level
+    loop through the one-level kernel and through the plain versions.
     Returns (max |duv| on commonly tracked features, the kernel run's and
     the plain run's LevelRecorder, the tracker's uv and status)."""
     from feature_tracker_tpu_torch.ops import cuda_warp_klt as cw
     from feature_tracker_tpu_torch.trackers import klt
 
     kind = "affine" if isinstance(tracker, klt.AffineKlt) else "lssd"
-    wrapper = (cw.affine_track_level_cuda if kind == "affine"
-               else cw.lssd_track_level_cuda)
-    levels = len(rp)
+    wrapper, expected = ((cw.affine_track_pyramid_cuda, 1) if kind == "affine"
+                         else (cw.lssd_track_level_cuda, len(rp)))
     before = wrapper.launches
     tu, tst = tracker.track(rp, cp, uv, None, status)
     torch.cuda.synchronize()
-    check(wrapper.launches == before + levels,
-          f"{label}: {wrapper.launches - before} launches for {levels} "
-          "levels")
+    check(wrapper.launches == before + expected,
+          f"{label}: {wrapper.launches - before} launches in track(), "
+          f"expected {expected}")
     ref_uv, cur_uv, st0 = tracker._prep(uv, None, status)
 
     def run(plain):
@@ -322,6 +329,14 @@ def warp_level_work(kind, opts, img_shape, n, n_tracked, steps,
         per_step = (p_n * (10 + 15 + 1 + 9 + 18 + (1 if luminance else 0))
                     + 36 + 25)
     return nbytes, n_tracked * setup + int(steps) * per_step
+
+
+def print_phases(label, clocks, units, unit):
+    """One line with a phase-clock profile (``read_phase_clocks``)."""
+    shares = ", ".join(f"{name} {share:.3f}"
+                       for name, share in clocks["share"].items())
+    print(f"[phases] {label}: {clocks['clocks'] / units:.0f} SM clocks per "
+          f"{unit} (all resident warps share the SM); shares: {shares}")
 
 
 def bound(nbytes, flops):
@@ -435,6 +450,56 @@ def lookup_inputs(dev, seed, b, h, w, c, levels, spread=None):
     return f0, pyr, locs
 
 
+def boundary_locations(locs, x_from, shift):
+    """``locs`` with every query from column ``x_from`` on moved ``shift``
+    px in x: a motion boundary."""
+    locs = locs.clone()
+    locs[:, :, x_from:, 0] += shift
+    return locs
+
+
+def scattered_locations(locs):
+    """``locs`` with the odd columns left of column 56 moved 64 px in x and
+    the odd rows above row 24 moved 32 px in y: at level 0 the windows of
+    one tile lie too far apart to stage."""
+    locs = locs.clone()
+    locs[:, :, 1:56:2, 0] += 64.0
+    locs[:, 1:24:2, :, 1] += 32.0
+    return locs
+
+
+def staged_line(label, f0, pyr, locs, radius):
+    """Print and return the host mirror of the kernel's staging rule
+    (``staged_share``) on these inputs."""
+    from feature_tracker_tpu_torch.ops.cuda_raft_lookup import staged_share
+
+    share = staged_share(locs, [p.shape[1:3] for p in pyr], radius,
+                         f0.shape[-1])
+    copied = 4 * f0.shape[-1] * share["staged_pixels"] + 4 * f0.numel() * len(
+        pyr) * share["tiles"]
+    print(f"[staged] {label}: {share['tiles']:.4f} of (tile, level) pairs, "
+          f"{share['queries']:.4f} of queries staged; mean box pixels per "
+          f"level {[round(x, 1) for x in share['box_pixels']]}; tiles by "
+          f"chunk {share['chunks']}; {copied / 1e6:.1f} MB copied to shared "
+          "memory per launch")
+    return share
+
+
+class LookupRecorder:
+    """Stands in for ``Raft.lookup_fn``: passes every call on to the CUDA
+    wrapper and keeps the inputs of the latest one."""
+
+    def __init__(self):
+        self.last = None
+
+    def __call__(self, fmap0, fpyr, locs, radius):
+        from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
+            lookup_correlation_cuda,
+        )
+        self.last = (fmap0, list(fpyr), locs)
+        return lookup_correlation_cuda(fmap0, fpyr, locs, radius)
+
+
 def compare_lookup(label, f0, pyr, locs, radius):
     """The lookup kernel against its plain version on the same card
     inputs. Returns max |kernel - plain|."""
@@ -532,7 +597,10 @@ def raft_phases(dev, card):
 
     from feature_tracker_tpu_torch.models import raft
     from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
+        TILE,
+        lookup_blocks_per_sm,
         lookup_correlation_cuda,
+        lookup_phase_clocks,
     )
 
     # 5a. The kernel against its plain version.
@@ -551,6 +619,33 @@ def raft_phases(dev, card):
                            *lookup_inputs(dev, 32, 2, 13, 22, 16, 3), 3),
             compare_lookup("lookup B=1 13x22 C=96 L=2 r=4, off the map",
                            *lookup_inputs(dev, 33, 1, 13, 22, 96, 2), 4)]
+    # A smooth flow; a tile that straddles a motion boundary; windows too
+    # far apart to stage; a map smaller than a tile; other channel counts
+    # (130: not a multiple of 4), radius 4, and one level.
+    smooth = lookup_inputs(dev, 34, RAFT_B, fh, fw, fc, levels, spread=0.25)
+    f0s, pyrs, locss = smooth
+    more = [
+        (f"lookup {shape}, grid + N(0, 0.25 px)", smooth, radius, 1.0),
+        (f"lookup {shape}, columns from 60 on shifted 40 px",
+         (f0s, pyrs, boundary_locations(locss, 60, 40.0)), radius, 1.0),
+        (f"lookup {shape}, windows of a tile up to 64 x 32 px apart",
+         (f0s, pyrs, scattered_locations(locss)), radius, None),
+        ("lookup B=2 5x6 C=32 L=2 r=3, a map smaller than a tile",
+         lookup_inputs(dev, 35, 2, 5, 6, 32, 2, spread=1.0), 3, 1.0),
+        ("lookup B=2 20x30 C=96 L=3 r=3",
+         lookup_inputs(dev, 36, 2, 20, 30, 96, 3, spread=0.5), 3, 1.0),
+        ("lookup B=1 13x22 C=130 L=2 r=3",
+         lookup_inputs(dev, 37, 1, 13, 22, 130, 2, spread=1.0), 3, 0.0),
+        ("lookup B=2 20x30 C=64 L=3 r=4",
+         lookup_inputs(dev, 38, 2, 20, 30, 64, 3, spread=0.5), 4, 1.0),
+        ("lookup B=2 20x30 C=32 L=1 r=3, one level",
+         lookup_inputs(dev, 39, 2, 20, 30, 32, 1, spread=2.0), 3, 1.0)]
+    for label, case, rad, want_share in more:
+        errs.append(compare_lookup(label, *case, rad))
+        got_share = staged_line(label, *case, rad)["queries"]
+        check(got_share == want_share if want_share is not None
+              else 0.0 < got_share < 1.0,
+              f"{label}: {got_share} of the queries staged")
 
     # 5b. The path at full width.
     refs, curs = [], [[] for _ in RAFT_SHIFTS]
@@ -587,6 +682,14 @@ def raft_phases(dev, card):
     check(not torch.equal(flows[0], flows[1]),
           "raft: two different pairs gave the same flow")
     mags = [float(f.abs().mean()) for f in flows]
+    # One more call (after the counts are read) that keeps the inputs of
+    # its last lookup: the main path's own locations, timed below.
+    recorder = LookupRecorder()
+    model.lookup_fn = recorder
+    check(torch.equal(model(*inputs[0]), flows[0]),
+          "raft: the recorded call gave another flow")
+    model.lookup_fn = lookup_correlation_cuda
+    real = recorder.last
     print(f"[raft] {RAFT_CALLS} calls {RAFT_W}x{RAFT_H} batch {RAFT_B}, full "
           f"configuration, {RAFT_ITERS} iterations, low_memory: lookup "
           f"launches={launches}; output {tuple(flows[0].shape)}; mean |flow| "
@@ -682,6 +785,30 @@ def raft_phases(dev, card):
         f0, pyr, locs, radius), repeats=10, warmup=1)
     nbytes, flops = lookup_work(f0, pyr, locs, radius)
     bound_ms, bound_by = bound(nbytes, flops)
+    staged_line(f"lookup {shape}, grid + N(0, 4 px) (timed)", *serving,
+                radius)
+    # The main path's own input: feature maps and locations of the last
+    # iteration of the driven call.
+    real_ms = cuda_ms(lambda: lookup_correlation_cuda(*real, radius),
+                      batch=10)
+    real_bytes, real_flops = lookup_work(*real, radius)
+    real_bound, real_by = bound(real_bytes, real_flops)
+    real_err = compare_lookup("lookup on the driven call's last iteration",
+                              *real, radius)
+    errs.append(real_err)
+    real_share = staged_line("lookup on the driven call's last iteration "
+                             "(timed)", *real, radius)
+    check(real_share["queries"] >= 0.9,
+          f"raft: only {real_share['queries']} of the driven call's queries "
+          "were staged")
+    flow_now = real[2] - real[2].new_tensor(
+        np.stack(np.meshgrid(np.arange(fw), np.arange(fh)), -1))
+    print(f"[time] raft lookup kernel on the driven call's last iteration "
+          f"(|flow| mean {float(flow_now.abs().mean()):.3f}, max "
+          f"{float(flow_now.abs().max()):.3f} px at 1/8 scale): "
+          f"{real_ms:.4f} ms per launch back to back; bound "
+          f"{real_bound:.4f} ms by {real_by} ({real_bytes} B, {real_flops} "
+          f"FLOP); {lookup_blocks_per_sm(radius)} blocks resident per SM")
     volume_ms = timed(lambda: raft.compute_correlation_pyramid(
         f0, pyr[0], levels), repeats=10, warmup=2)
     volume = raft.compute_correlation_pyramid(f0, pyr[0], levels)
@@ -692,6 +819,11 @@ def raft_phases(dev, card):
     print(f"[time] raft lookup kernel {shape}: {kernel_ms:.4f} ms per launch "
           f"back to back, {call_ms:.4f} ms per lone call; bound "
           f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} FLOP)")
+    blocks = RAFT_B * -(-fh // TILE) * -(-fw // TILE) * levels
+    for label, case in (("grid + N(0, 4 px)", serving),
+                        ("the driven call's last iteration", real)):
+        print_phases(f"raft lookup kernel, {label}",
+                     lookup_phase_clocks(*case, radius), blocks, "block")
     print(f"[time] raft lookup plain PyTorch version on the card: "
           f"{plain_ms:.4f} ms")
     print(f"[time] raft materialised route (two library calls, the nearest "
@@ -791,6 +923,7 @@ def main() -> int:
     )
     from feature_tracker_tpu_torch.trackers.klt.affine import (
         affine_track_level_reference,
+        affine_track_pyramid_reference,
     )
     from feature_tracker_tpu_torch.trackers.klt.basic import (
         track_pyramid_fast_reference,
@@ -814,22 +947,36 @@ def main() -> int:
     libraries = [cuda_klt.FAST_LIBRARY, cuda_klt.ITER_LIBRARY,
                  cuda_warp_klt.AFFINE_LIBRARY, cuda_warp_klt.LSSD_LIBRARY,
                  cuda_raft_lookup.LOOKUP_LIBRARY]
-    lib_paths = _build.build_libraries(libraries)
+    # And the two redesigned kernels once more with phase clocks compiled
+    # in, for the profiles printed with their timings.
+    profiled = [_build.phase_clock_library("ftk_klt_affine_phases",
+                                           "klt_affine.cu"),
+                _build.phase_clock_library("ftk_raft_lookup_phases",
+                                           "raft_lookup.cu", True)]
+    lib_paths = _build.build_libraries(libraries + profiled)[:len(libraries)]
     for load in (cuda_klt.load_klt_library, cuda_klt.load_klt_iter_library,
                  cuda_warp_klt.load_affine_library,
                  cuda_warp_klt.load_lssd_library,
                  cuda_raft_lookup.load_lookup_library):
         load()
-    print(f"[build] {len(lib_paths)} libraries ready in "
+    print(f"[build] {len(lib_paths)} libraries (and {len(profiled)} with "
+          "phase clocks) ready in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "
-          f"{' '.join(_build.NVCC_FLAGS[:3])}, in parallel)")
+          f"{' '.join(_build.NVCC_FLAGS[:2])}, --fmad=false but for "
+          "raft_lookup, in parallel)")
     for lib_path in lib_paths:
         print(f"[build] {os.path.relpath(lib_path, ROOT)}")
         if os.path.exists(lib_path + ".log"):
             with open(lib_path + ".log") as fh:
                 for line in fh.read().splitlines():
-                    if "ptxas info" in line and ("Used" in line
-                                                 or "spill" in line):
+                    if "Compiling entry" in line:
+                        # The kernel's name inside the mangled one.
+                        found = re.findall(
+                            r"\d((?:klt|raft)_[a-z_]+_kernel"
+                            r"(?:ILi\d+ELi\d+E)?)", line)
+                        print("[build]   kernel "
+                              f"{found[-1] if found else line}")
+                    elif "Used" in line or "spill" in line:
                         print(f"[build]   {line.strip()}")
 
     # 2. Kernels against their plain versions. First the FAST kernel: at
@@ -943,7 +1090,7 @@ def main() -> int:
                                  method=KltMethod.INVERSE)),
              cuda_klt.track_pyramid_iter_cuda, 1),
             ("affine", AffineKlt(cfg.klt),
-             cuda_warp_klt.affine_track_level_cuda, cfg.pyramid_levels),
+             cuda_warp_klt.affine_track_pyramid_cuda, 1),
             ("lssd", LssdKlt(cfg.klt, False),
              cuda_warp_klt.lssd_track_level_cuda, cfg.pyramid_levels)):
         path_launches[label], _, path_s = drive_front_end(
@@ -1030,9 +1177,12 @@ def main() -> int:
                 "bound_by": m_by, "library_ms": None,
             })
 
-    # The warp kernels, one level per launch: each level's launch is timed
-    # at the inputs the headline track() gave it; the kernels line carries
-    # level 0 (752x480), the largest; the whole track() call is printed.
+    # The warp kernels. Each level is timed through the one-level wrapper at
+    # the inputs the headline track() gave it. The SE(2) tracker launches
+    # one kernel per level: its entry in the kernels line carries level 0
+    # (752x480), the largest. The affine tracker launches one kernel for the
+    # whole pyramid: its entry carries that launch, its bound the sum over
+    # the levels, its plain time the plain level loop.
     for tname, tracker in trackers.items():
         kind = tname.split()[0]
         lum = kind == "lssd" and tracker.consider_patch_luminance
@@ -1052,34 +1202,65 @@ def main() -> int:
             l_bytes, l_flops = warp_level_work(
                 kind, tracker.options, pyr_shapes[lvl], N, N, l_steps, lum)
             l_bound, l_by = bound(l_bytes, l_flops)
-            rows.append((l_ms, l_plain, l_bound, l_by))
+            rows.append((l_ms, l_plain, l_bytes, l_flops, l_steps))
             print(f"[time] {tname} kernel level {lvl} "
                   f"{pyr_shapes[lvl][1]}x{pyr_shapes[lvl][0]} N=10240: "
                   f"{l_ms:.4f} ms per launch back to back; plain "
                   f"{l_plain:.4f} ms; bound {l_bound:.4f} ms by {l_by} "
                   f"({l_bytes} B, {l_flops} FLOP, {l_steps} GN steps)")
         track_ms = cuda_ms(lambda: tracker.track(rp, cp, uv))
-        print(f"[time] {tname} track() 752x480 L=4 N=10240 ({LEVELS} "
-              f"launches and the level loop): {track_ms:.4f} ms per lone "
-              f"call; kernels alone {sum(r[0] for r in rows):.4f} ms")
+        if kind == "affine":
+            eye = torch.eye(2, device=dev).expand(N, 2, 2).contiguous()
+            p_args = (tracker.options, rp, cp, uv, uv, eye, no_skip)
+            k_ms = cuda_ms(lambda: cuda_warp_klt.affine_track_pyramid_cuda(
+                *p_args), batch=10)
+            k_plain = cuda_ms(lambda: affine_track_pyramid_reference(*p_args),
+                              repeats=10, warmup=2)
+            k_bound, k_by = bound(sum(r[2] for r in rows),
+                                  sum(r[3] for r in rows))
+            occ = cuda_warp_klt.affine_occupancy(tracker.options)
+            print(f"[time] affine whole-pyramid kernel 752x480 L=4 N=10240: "
+                  f"{k_ms:.4f} ms per launch back to back; plain level loop "
+                  f"{k_plain:.4f} ms; bound {k_bound:.4f} ms by {k_by} (sum "
+                  f"over the levels, {sum(r[4] for r in rows)} GN steps); "
+                  f"{occ['registers']} registers, {occ['warps_per_block']} "
+                  f"warps a block, {occ['blocks_per_sm']} blocks = "
+                  f"{occ['warps_per_sm']} warps resident per SM")
+            print(f"[time] affine track() 752x480 L=4 N=10240 (one launch): "
+                  f"{track_ms:.4f} ms per lone call; the four levels "
+                  f"launched one by one {sum(r[0] for r in rows):.4f} ms")
+            check(occ["warps_per_sm"] >= 16,
+                  f"affine kernel: {occ['warps_per_sm']} warps per SM")
+            print_phases("affine whole-pyramid kernel, headline pair",
+                         cuda_warp_klt.affine_phase_clocks(*p_args), N,
+                         "feature")
+        else:
+            l_ms, l_plain, l_bytes, l_flops, _ = rows[-1]
+            k_ms, k_plain = l_ms, l_plain
+            k_bound, k_by = bound(l_bytes, l_flops)
+            print(f"[time] {tname} track() 752x480 L=4 N=10240 ({LEVELS} "
+                  f"launches and the level loop): {track_ms:.4f} ms per lone "
+                  f"call; kernels alone {sum(r[0] for r in rows):.4f} ms")
         if tname in ("affine", "lssd"):   # the front-end paths above
-            l_ms, l_plain, l_bound, l_by = rows[-1]
             kernels.append({
-                "name": f"klt_{kind}_level",
+                "name": ("klt_affine_pyramid" if kind == "affine"
+                         else "klt_lssd_level"),
                 "route": "cuda",
                 "source": f"feature_tracker_tpu_torch/csrc/klt_{kind}.cu",
                 "replaces": "feature_tracker_tpu/ops/pallas_warp_klt.py:"
                             + ("728" if kind == "affine" else "761"),
                 "launches": path_launches[kind],
                 "max_abs_err": max(warp_errs[kind]),
-                "ms": l_ms, "plain_ms": l_plain, "bound_ms": l_bound,
-                "bound_by": l_by, "library_ms": None,
+                "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+                "bound_by": k_by, "library_ms": None,
             })
     print(f"[time] card: {card}")
 
     profile_window("klt kernel 752x480 L=4 N=10240",
                    lambda: cuda_klt.track_pyramid_fast_cuda(
                        opts, rp, cp, uv, uv, no_skip), calls=5)
+    profile_window("affine track() 752x480 L=4 N=10240",
+                   lambda: trackers["affine"].track(rp, cp, uv), calls=5)
     profile_window("lssd luminance track() 752x480 L=4 N=10240",
                    lambda: trackers["lssd luminance"].track(rp, cp, uv),
                    calls=5)

@@ -22,7 +22,10 @@ import functools
 import torch
 
 from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
-from feature_tracker_tpu_torch.ops._build import load_library
+from feature_tracker_tpu_torch.ops._build import (
+    load_library,
+    phase_clock_library,
+)
 
 MAX_LEVELS = 8  # FTK_MAX_LEVELS in csrc/klt_common.cuh
 FAST_LIBRARY = ("ftk_klt_fast", ("klt_fast.cu",))
@@ -95,6 +98,30 @@ def raise_on_error(lib, function: str, rc: int) -> None:
         raise RuntimeError(
             f"{function} launch failed: "
             f"{lib.ftk_cuda_error_string(rc).decode()} (cudaError {rc})")
+
+
+def bind_phase_clocks(name: str, source: str, function: str, argtypes,
+                      fmad: bool = False) -> ctypes.CDLL:
+    """Build and load ``csrc/<source>`` with phase clocks compiled in
+    (``_build.phase_clock_library``) and declare ``function``'s signature
+    and the counters' reader."""
+    lib = bind(phase_clock_library(name, source, fmad), function, argtypes)
+    lib.ftk_phase_clocks_read.argtypes = [ctypes.c_void_p]
+    lib.ftk_phase_clocks_read.restype = ctypes.c_int
+    return lib
+
+
+def read_phase_clocks(lib, names) -> dict:
+    """Read and reset the phase counters of a library built with phase
+    clocks (after a synchronise): ``{"clocks": total, "share": {name:
+    share of the total}}`` for the phases in ``names``, in the kernel's
+    order."""
+    counters = (ctypes.c_ulonglong * 8)()
+    rc = lib.ftk_phase_clocks_read(ctypes.cast(counters, ctypes.c_void_p))
+    raise_on_error(lib, "ftk_phase_clocks_read", rc)
+    total = sum(counters) or 1
+    return {"clocks": sum(counters),
+            "share": {n: c / total for n, c in zip(names, counters)}}
 
 
 def _launch_pyramid(wrapper, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,

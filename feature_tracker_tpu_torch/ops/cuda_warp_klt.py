@@ -1,17 +1,18 @@
 """CUDA kernels for the warped KLT trackers (affine and SE(2)/LSSD), FAST
-mode, one pyramid level per launch — the counterpart of
-``feature_tracker_tpu/ops/pallas_warp_klt.py``.
+mode — the counterpart of ``feature_tracker_tpu/ops/pallas_warp_klt.py``.
 
-``csrc/klt_affine.cu`` and ``csrc/klt_lssd.cu`` each run one warp per
-feature through one level's Gauss-Newton loop; their headers state what
-they compute, their solver, their bound on an H100 and their design. They
-are built by ``nvcc`` at first use (``ops/_build.py``) and called through
-``ctypes`` on PyTorch's current stream.
+``csrc/klt_affine.cu`` runs one warp per feature through the whole
+coarse-to-fine loop in one launch (one level is a pyramid of one);
+``csrc/klt_lssd.cu`` runs one level's Gauss-Newton loop per launch. Their
+headers state what they compute, their solver, their bound on an H100 and
+their design. They are built by ``nvcc`` at first use (``ops/_build.py``)
+and called through ``ctypes`` on PyTorch's current stream.
 
-:func:`affine_track_level_cuda` and :func:`lssd_track_level_cuda` dispatch
-by the tensors' device: CPU tensors take the plain PyTorch versions
-(``trackers/klt/affine.py``, ``trackers/klt/lssd.py``), CUDA tensors the
-kernels. A CUDA input a kernel cannot take raises; there is no fallback.
+:func:`affine_track_pyramid_cuda`, :func:`affine_track_level_cuda` and
+:func:`lssd_track_level_cuda` dispatch by the tensors' device: CPU tensors
+take the plain PyTorch versions (``trackers/klt/affine.py``,
+``trackers/klt/lssd.py``), CUDA tensors the kernels. A CUDA input a kernel
+cannot take raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -23,11 +24,14 @@ import torch
 
 from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
 from feature_tracker_tpu_torch.ops.cuda_klt import (
+    MAX_LEVELS,
     bind,
+    bind_phase_clocks,
     check,
     check_features,
     check_images,
     raise_on_error,
+    read_phase_clocks,
 )
 
 AFFINE_LIBRARY = ("ftk_klt_affine", ("klt_affine.cu",))
@@ -36,12 +40,20 @@ LSSD_LIBRARY = ("ftk_klt_lssd", ("klt_lssd.cu",))
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+_AFFINE_ARGTYPES = ([_VP] * 4 + [_INT] + [_VP] * 7 + [_INT] * 5
+                    + [_FLOAT, _VP])
+# The phases csrc/klt_affine.cu marks, in its order.
+AFFINE_PHASES = ("patch", "sums of H", "reduction of H", "factorisation",
+                 "step pixels", "step reduction", "step solve")
+
+
 @functools.lru_cache(maxsize=None)
 def load_affine_library() -> ctypes.CDLL:
     """Build (at first use) and load the affine kernel's library."""
-    return bind(AFFINE_LIBRARY, "ftk_klt_affine_level",
-                [_VP, _VP, _INT, _INT] + [_VP] * 7 + [_INT] * 5
-                + [_FLOAT, _VP])
+    lib = bind(AFFINE_LIBRARY, "ftk_klt_affine_pyramid", _AFFINE_ARGTYPES)
+    lib.ftk_klt_affine_occupancy.argtypes = [_INT, _INT, _VP, _VP, _VP]
+    lib.ftk_klt_affine_occupancy.restype = _INT
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,9 +70,85 @@ def _fast_only(where: str, opts: KltOptions) -> None:
           "trackers.klt's plain PyTorch")
 
 
+def _launch_affine(where: str, lib, opts: KltOptions, ref_pyr, cur_pyr,
+                   ref_uv, cur_uv, affine, skip):
+    """Check the inputs and launch ``lib``'s affine kernel on a pyramid
+    (finest level first; positions at full resolution). Returns the outputs
+    and whether a kernel was launched (not for zero features)."""
+    dev = ref_uv.device
+    levels = len(ref_pyr)
+    n = ref_uv.shape[0]
+    check(1 <= levels <= MAX_LEVELS and len(cur_pyr) == levels, where,
+          f"need 1..{MAX_LEVELS} levels in both pyramids, got "
+          f"{levels} and {len(cur_pyr)}")
+    check_images(where, dev, ref_pyr, cur_pyr)
+    check_features(where, dev, n, skip, ref_uv=(ref_uv, (2,)),
+                   cur_uv=(cur_uv, (2,)), affine=(affine, (2, 2)))
+    out_uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    out_aff = torch.empty((n, 2, 2), dtype=torch.float32, device=dev)
+    out_st = torch.empty((n,), dtype=torch.int8, device=dev)
+    if n == 0:
+        return (out_uv, out_aff, out_st), False
+    ptrs = ctypes.c_void_p * levels
+    ints = ctypes.c_int * levels
+    pyramids = [ctypes.cast(a, _VP) for a in (
+        ptrs(*[im.data_ptr() for im in ref_pyr]),
+        ptrs(*[im.data_ptr() for im in cur_pyr]),
+        ints(*[im.shape[0] for im in ref_pyr]),
+        ints(*[im.shape[1] for im in ref_pyr]))]
+    with torch.cuda.device(dev):
+        rc = lib.ftk_klt_affine_pyramid(
+            *pyramids, levels, ref_uv.data_ptr(), cur_uv.data_ptr(),
+            affine.data_ptr(), skip.data_ptr(), out_uv.data_ptr(),
+            out_aff.data_ptr(), out_st.data_ptr(), n,
+            opts.patch_row_half_size, opts.patch_col_half_size,
+            opts.max_iterations, opts.max_tolerance_large_step,
+            float(opts.max_converge_step),
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(lib, "ftk_klt_affine_pyramid", rc)
+    return (out_uv, out_aff, out_st), True
+
+
+def affine_track_pyramid_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
+                              cur_uv, affine, skip):
+    """Whole-pyramid FAST-mode affine KLT in one kernel launch.
+
+    Args:
+      ref_pyr, cur_pyr: sequences of ``[H_l, W_l]`` float32 levels, finest
+        first (at most 8).
+      ref_uv, cur_uv: ``[N, 2]`` float32 full-resolution positions.
+      affine: ``[N, 2, 2]`` float32, the warp at the coarsest level; it is
+        carried from level to level.
+      skip: ``[N]`` bool; skipped lanes return ``cur_uv``, ``affine`` and
+        NOT_TRACKED.
+
+    Returns ``(uv [N, 2] at full resolution, affine [N, 2, 2], status [N]
+    int8 of the finest level)``; the final outside check and the skip
+    pass-through of the input status are the caller's. CPU tensors take the
+    plain PyTorch version (the level loop over the one-level plain
+    version); CUDA tensors launch the kernel (counted in
+    ``affine_track_pyramid_cuda.launches``) or raise."""
+    # Imported here: trackers.klt imports this module.
+    from feature_tracker_tpu_torch.trackers.klt.affine import (
+        affine_track_pyramid_reference,
+    )
+    _fast_only("affine_track_pyramid_cuda", opts)
+    if ref_uv.device.type == "cpu":
+        return affine_track_pyramid_reference(opts, ref_pyr, cur_pyr, ref_uv,
+                                              cur_uv, affine, skip)
+    check(ref_uv.device.type == "cuda", "affine_track_pyramid_cuda",
+          f"unsupported device {ref_uv.device}")
+    out, launched = _launch_affine(
+        "affine_track_pyramid_cuda", load_affine_library(), opts, ref_pyr,
+        cur_pyr, ref_uv, cur_uv, affine, skip)
+    affine_track_pyramid_cuda.launches += launched
+    return out
+
+
 def affine_track_level_cuda(opts: KltOptions, ref_img, cur_img, ref_uv,
                             cur_uv, affine, skip):
-    """FAST-mode affine KLT at one pyramid level in one kernel launch.
+    """FAST-mode affine KLT at one pyramid level in one kernel launch: the
+    one-level case of :func:`affine_track_pyramid_cuda`'s kernel.
 
     Args:
       ref_img, cur_img: ``[H, W]`` float32.
@@ -72,40 +160,52 @@ def affine_track_level_cuda(opts: KltOptions, ref_img, cur_img, ref_uv,
     Returns ``(uv [N, 2], affine [N, 2, 2], status [N] int8)``. CPU tensors
     take the plain PyTorch version; CUDA tensors launch the kernel (counted
     in ``affine_track_level_cuda.launches``) or raise."""
-    # Imported here: trackers.klt imports this module.
     from feature_tracker_tpu_torch.trackers.klt.affine import (
         affine_track_level_reference,
     )
-    where = "affine_track_level_cuda"
-    _fast_only(where, opts)
-    dev = ref_uv.device
-    if dev.type == "cpu":
+    _fast_only("affine_track_level_cuda", opts)
+    if ref_uv.device.type == "cpu":
         return affine_track_level_reference(opts, ref_img, cur_img, ref_uv,
                                             cur_uv, affine, skip)
-    check(dev.type == "cuda", where, f"unsupported device {dev}")
-    n = ref_uv.shape[0]
-    check_images(where, dev, (ref_img,), (cur_img,))
-    check_features(where, dev, n, skip, ref_uv=(ref_uv, (2,)),
-                   cur_uv=(cur_uv, (2,)), affine=(affine, (2, 2)))
-    out_uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    out_aff = torch.empty((n, 2, 2), dtype=torch.float32, device=dev)
-    out_st = torch.empty((n,), dtype=torch.int8, device=dev)
-    if n == 0:
-        return out_uv, out_aff, out_st
+    check(ref_uv.device.type == "cuda", "affine_track_level_cuda",
+          f"unsupported device {ref_uv.device}")
+    out, launched = _launch_affine(
+        "affine_track_level_cuda", load_affine_library(), opts, (ref_img,),
+        (cur_img,), ref_uv, cur_uv, affine, skip)
+    affine_track_level_cuda.launches += launched
+    return out
+
+
+def affine_phase_clocks(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
+                        affine, skip) -> dict:
+    """Where the affine kernel's time goes on these CUDA inputs: one launch
+    of its build with phase clocks (``csrc/klt_common.cuh``), then the
+    shares of ``AFFINE_PHASES`` in the clocks of all warps
+    (:func:`cuda_klt.read_phase_clocks`). A diagnostic: the clocks slow the
+    kernel a little, and the launch is in no wrapper's count."""
+    lib = bind_phase_clocks("ftk_klt_affine_phases", "klt_affine.cu",
+                            "ftk_klt_affine_pyramid", _AFFINE_ARGTYPES)
+    read_phase_clocks(lib, AFFINE_PHASES)
+    _launch_affine("affine_phase_clocks", lib, opts, ref_pyr, cur_pyr, ref_uv,
+                   cur_uv, affine, skip)
+    torch.cuda.synchronize(ref_uv.device)
+    return read_phase_clocks(lib, AFFINE_PHASES)
+
+
+def affine_occupancy(opts: KltOptions) -> dict:
+    """What the current card holds of the affine kernel at ``opts``' patch
+    size: ``registers`` a thread, ``warps_per_block``, ``blocks_per_sm``
+    (from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and their
+    product ``warps_per_sm``. Nothing is launched."""
     lib = load_affine_library()
-    with torch.cuda.device(dev):
-        rc = lib.ftk_klt_affine_level(
-            ref_img.data_ptr(), cur_img.data_ptr(), ref_img.shape[0],
-            ref_img.shape[1], ref_uv.data_ptr(), cur_uv.data_ptr(),
-            affine.data_ptr(), skip.data_ptr(), out_uv.data_ptr(),
-            out_aff.data_ptr(), out_st.data_ptr(), n,
-            opts.patch_row_half_size, opts.patch_col_half_size,
-            opts.max_iterations, opts.max_tolerance_large_step,
-            float(opts.max_converge_step),
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(lib, "ftk_klt_affine_level", rc)
-    affine_track_level_cuda.launches += 1
-    return out_uv, out_aff, out_st
+    regs, warps, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    rc = lib.ftk_klt_affine_occupancy(
+        opts.patch_row_half_size, opts.patch_col_half_size,
+        *(ctypes.cast(ctypes.pointer(v), _VP) for v in (regs, warps, blocks)))
+    raise_on_error(lib, "ftk_klt_affine_occupancy", rc)
+    return {"registers": regs.value, "warps_per_block": warps.value,
+            "blocks_per_sm": blocks.value,
+            "warps_per_sm": warps.value * blocks.value}
 
 
 def lssd_track_level_cuda(opts: KltOptions, luminance: bool, ref_img,
@@ -158,5 +258,6 @@ def lssd_track_level_cuda(opts: KltOptions, luminance: bool, ref_img,
     return out_rot, out_t, out_st
 
 
+affine_track_pyramid_cuda.launches = 0
 affine_track_level_cuda.launches = 0
 lssd_track_level_cuda.launches = 0

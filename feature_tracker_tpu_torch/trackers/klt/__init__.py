@@ -12,10 +12,11 @@ Semantics shared with the JAX package:
  - A final position outside the full-resolution image maps to OUTSIDE.
 
 On CUDA tensors the basic tracker runs the whole pyramid through one
-launch of a CUDA kernel in every solver mode (``ops/cuda_klt.py``), and
-the affine and LSSD trackers run every FAST-mode level through one launch
-of theirs (``ops/cuda_warp_klt.py``); on CPU tensors each takes its
-kernel's plain PyTorch version. The DIRECT / INVERSE modes of the affine
+launch of a CUDA kernel in every solver mode (``ops/cuda_klt.py``), the
+affine tracker runs the whole pyramid through one launch of its FAST-mode
+kernel, and the LSSD tracker runs every FAST-mode level through one launch
+of its (``ops/cuda_warp_klt.py``); on CPU tensors each takes its kernel's
+plain PyTorch version. The DIRECT / INVERSE modes of the affine
 and LSSD trackers have no kernel in the JAX package either and are plain
 PyTorch on both devices.
 """
@@ -31,6 +32,9 @@ from feature_tracker_tpu_torch.core.status import fresh_status, is_failed
 from feature_tracker_tpu_torch.ops.cuda_klt import (
     track_pyramid_fast_cuda,
     track_pyramid_iter_cuda,
+)
+from feature_tracker_tpu_torch.ops.cuda_warp_klt import (
+    affine_track_pyramid_cuda,
 )
 from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
 from feature_tracker_tpu_torch.trackers.klt import affine as _affine
@@ -66,19 +70,29 @@ def basic_pyramid(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
 
 
 def affine_pyramid(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
-                    status, affine0=None, level_fn=_affine.track_level):
-    """Affine level loop. ``affine0`` is None for the multi-level call (A
-    starts at identity once per call and persists across levels) or the
-    single-level call's ``predict_affine``. ``level_fn`` tracks one level
-    (a check may pass the plain version in, or record what goes through)."""
+                    status, affine0=None, level_fn=None):
+    """Affine tracker over a pyramid. ``affine0`` is None for the
+    multi-level call (A starts at identity once per call and persists
+    across levels) or the single-level call's ``predict_affine``.
+
+    FAST mode goes through ``affine_track_pyramid_cuda``: one kernel launch
+    for all levels on CUDA tensors, the plain level loop on CPU tensors.
+    DIRECT / INVERSE, and any call that passes ``level_fn`` (a function
+    that tracks one level: a check may pass the plain version in, or record
+    what goes through), run the level loop here."""
     n = ref_uv.shape[0]
     skip = _skip_mask(n, status, opts)
-    scale = float(1 << (len(ref_pyr) - 1))
-    s_ref = ref_uv / scale
-    s_cur = cur_uv / scale
     if affine0 is None:
         affine0 = torch.eye(2, dtype=torch.float32, device=ref_uv.device)
     aff = affine0.expand(n, 2, 2).contiguous()
+    if level_fn is None and opts.method == KltMethod.FAST:
+        s_cur, _, st = affine_track_pyramid_cuda(
+            opts, ref_pyr, cur_pyr, ref_uv, cur_uv, aff, skip)
+        return _finish(skip, cur_uv, status, s_cur, st, cur_pyr[0].shape)
+    level_fn = level_fn or _affine.track_level
+    scale = float(1 << (len(ref_pyr) - 1))
+    s_ref = ref_uv / scale
+    s_cur = cur_uv / scale
     st = status
     for lvl in range(len(ref_pyr) - 1, -1, -1):
         s_cur, aff, st = level_fn(

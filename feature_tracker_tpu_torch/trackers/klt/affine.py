@@ -8,8 +8,10 @@ stacked, then dt).
    ``x0, y0`` = patch offset + the level-entry ``cur_uv``) is summed once
    per level from the reference patch's gradients; the bias is rebuilt
    every step at the warped absolute positions. The status is rewritten at
-   every level. :func:`affine_track_level_reference` is the plain version
-   of the CUDA kernel ``ops.cuda_warp_klt.affine_track_level_cuda``.
+   every level. :func:`affine_track_level_reference` and the level loop
+   over it, :func:`affine_track_pyramid_reference`, are the plain versions
+   of the CUDA kernel behind ``ops.cuda_warp_klt.affine_track_level_cuda``
+   and ``affine_track_pyramid_cuda``.
  - DIRECT / INVERSE: H and b rebuilt every step from per-pixel bilinear
    samples, the incoming status kept, an OUTSIDE break on the updated
    position. The JAX package has no TPU kernel for these modes; here they
@@ -145,6 +147,40 @@ def affine_track_level_reference(opts: KltOptions, ref_img, cur_img, ref_uv,
     if with_steps:
         return uv, aff, status, steps
     return uv, aff, status
+
+
+def affine_track_pyramid_reference(opts: KltOptions, ref_pyr, cur_pyr,
+                                   ref_uv, cur_uv, affine, skip,
+                                   with_steps: bool = False):
+    """FAST-mode affine KLT over a whole pyramid, in plain PyTorch: the
+    level loop over :func:`affine_track_level_reference`.
+
+    Args:
+      ref_pyr, cur_pyr: sequences of ``[H_l, W_l]`` float32 levels, finest
+        first.
+      ref_uv, cur_uv: ``[N, 2]`` float32 full-resolution positions.
+      affine: ``[N, 2, 2]`` float32, carried from level to level.
+      skip: ``[N]`` bool.
+      with_steps: also return ``[N]`` int32, the steps each feature took
+        over all levels.
+
+    Returns ``(uv [N, 2] at full resolution, affine [N, 2, 2], status [N]
+    int8 of the finest level)``."""
+    scale = float(1 << (len(ref_pyr) - 1))
+    s_ref = ref_uv / scale
+    s_cur = cur_uv / scale
+    steps = 0
+    for lvl in range(len(ref_pyr) - 1, -1, -1):
+        s_cur, affine, status, lvl_steps = affine_track_level_reference(
+            opts, ref_pyr[lvl], cur_pyr[lvl], s_ref, s_cur, affine, skip,
+            with_steps=True)
+        steps = steps + lvl_steps
+        if lvl > 0:
+            s_ref = s_ref * 2.0
+            s_cur = s_cur * 2.0
+    if with_steps:
+        return s_cur, affine, status, steps
+    return s_cur, affine, status
 
 
 def _iterative_level(opts: KltOptions, ref_img, cur_img, ref_uv, cur_uv,

@@ -16,6 +16,7 @@ from feature_tracker_tpu_torch.models import raft
 from feature_tracker_tpu_torch.ops import cuda_klt, cuda_warp_klt
 from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
     lookup_correlation_cuda,
+    staged_share,
 )
 from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
 from feature_tracker_tpu_torch.trackers.klt import (
@@ -25,6 +26,7 @@ from feature_tracker_tpu_torch.trackers.klt import (
 )
 from feature_tracker_tpu_torch.trackers.klt.affine import (
     affine_track_level_reference,
+    affine_track_pyramid_reference,
 )
 from feature_tracker_tpu_torch.trackers.klt.basic import (
     track_pyramid_fast_reference,
@@ -34,7 +36,11 @@ from feature_tracker_tpu_torch.trackers.klt.lssd import (
     lssd_track_level_reference,
 )
 
-from chip_smoke import lookup_inputs
+from chip_smoke import (
+    boundary_locations,
+    lookup_inputs,
+    scattered_locations,
+)
 from synthetic import se2_pair, translated_pair
 
 pytestmark = pytest.mark.cuda
@@ -232,6 +238,113 @@ def test_affine_kernel_matches_plain_version(se2_images, patch):
     assert off == [3, 3, 3]
 
 
+@pytest.fixture
+def se2_pyramids():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ref, cur = se2_pair(h=240, w=320, theta=0.02, shift=(3.0, -2.0))[:2]
+    return (build_pyramid(ref, 3, device="cuda"),
+            build_pyramid(cur, 3, device="cuda"))
+
+
+@pytest.mark.parametrize("patch", [{}, {"patch_row_half_size": 9}])
+def test_affine_pyramid_kernel_matches_plain_level_loop(se2_pyramids, patch):
+    rp, cp = se2_pyramids
+    opts = KltOptions(**patch)
+    uv = torch.from_numpy(np.concatenate([
+        _features(2000, 240, 320, -4, seed=17),
+        [[-30.0, -30.0], [400.0, 20.0], [-4096.0, -4096.0]]]
+    ).astype(np.float32)).cuda()
+    n = uv.shape[0]
+    cur_uv = (uv + torch.tensor([1.0, -0.5], device="cuda")).contiguous()
+    aff = torch.tensor([[1.005, 0.002], [-0.002, 0.995]],
+                       device="cuda").expand(n, 2, 2).contiguous()
+    skip = torch.zeros(n, dtype=torch.bool, device="cuda")
+    skip[::7] = True
+    call = cuda_warp_klt.affine_track_pyramid_cuda
+    before = call.launches
+    ku, ka, ks = call(opts, rp, cp, uv, cur_uv, aff, skip)
+    torch.cuda.synchronize()
+    assert call.launches == before + 1
+    assert ku.shape == (n, 2) and ka.shape == (n, 2, 2)
+    assert ks.dtype == torch.int8
+    pu, pa, ps = affine_track_pyramid_reference(opts, rp, cp, uv, cur_uv,
+                                                aff, skip)
+    # Both sides accumulate and solve in float64: at most 0.1 % of the
+    # statuses (at least 1) may flip at a threshold.
+    ksn, psn = ks.cpu().numpy(), ps.cpu().numpy()
+    assert (ksn != psn).sum() <= max(1, n // 1000)
+    both = (ksn == 1) & (psn == 1)
+    assert both.sum() > n // 2
+    assert (ku - pu).abs().cpu().numpy()[both].max() <= 1e-3
+    assert (ka - pa).abs().cpu().numpy()[both].max() <= 5e-3
+    assert (ks[skip] == 0).all()
+    assert torch.equal(ku[skip], cur_uv[skip])
+    assert torch.equal(ka[skip], aff[skip])
+    assert (ksn[-3:] == psn[-3:]).all() and ksn[-3] == 3   # off the image
+    # The level loop through the one-level launches of the same kernel
+    # gives the same bits.
+    s_ref, s_cur, a = uv / 4.0, cur_uv / 4.0, aff
+    for lvl in (2, 1, 0):
+        s_cur, a, st = cuda_warp_klt.affine_track_level_cuda(
+            opts, rp[lvl], cp[lvl], s_ref.contiguous(), s_cur.contiguous(),
+            a, skip)
+        if lvl:
+            s_ref, s_cur = s_ref * 2.0, s_cur * 2.0
+    assert torch.equal(s_cur, ku) and torch.equal(a, ka)
+    assert torch.equal(st, ks)
+
+
+def test_affine_tracker_launches_once_per_track(pair):
+    rp, cp = pair
+    uv = _features(256, 240, 320, 2, seed=18)
+    pyramid = cuda_warp_klt.affine_track_pyramid_cuda
+    level = cuda_warp_klt.affine_track_level_cuda
+    before = (pyramid.launches, level.launches)
+    tracker = AffineKlt(KltOptions(max_track_points=256))
+    tracker.track(rp, cp, uv)
+    assert (pyramid.launches, level.launches) == (before[0] + 1, before[1])
+    tracker.track_single_level(rp[0], cp[0], uv)
+    assert (pyramid.launches, level.launches) == (before[0] + 2, before[1])
+    # DIRECT / INVERSE have no kernel: plain PyTorch, no launch.
+    AffineKlt(KltOptions(method=KltMethod.INVERSE)).track(rp, cp, uv)
+    assert (pyramid.launches, level.launches) == (before[0] + 2, before[1])
+
+
+def test_affine_pyramid_zero_features_and_refused_inputs(pair):
+    rp, cp = pair
+    call = cuda_warp_klt.affine_track_pyramid_cuda
+    e2 = torch.zeros((0, 2), device="cuda")
+    before = call.launches
+    out = call(KltOptions(), rp, cp, e2, e2,
+               torch.zeros((0, 2, 2), device="cuda"),
+               torch.zeros(0, dtype=torch.bool, device="cuda"))
+    assert out[0].shape == (0, 2) and out[1].shape == (0, 2, 2)
+    assert out[2].shape == (0,) and call.launches == before
+    uv = torch.full((4, 2), 50.0, device="cuda")
+    eye = torch.eye(2, device="cuda").expand(4, 2, 2)
+    skip = torch.zeros(4, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        call(KltOptions(), rp, cp, uv, uv, eye, skip)       # expanded view
+    eye = eye.contiguous()
+    with pytest.raises(ValueError, match="levels"):
+        call(KltOptions(), rp * 3, cp * 3, uv, uv, eye, skip)
+    with pytest.raises(ValueError, match="levels"):
+        call(KltOptions(), rp, cp[:2], uv, uv, eye, skip)
+    with pytest.raises(ValueError, match="shape"):
+        call(KltOptions(), rp, cp[::-1], uv, uv, eye, skip)
+    with pytest.raises(ValueError, match="float32"):
+        call(KltOptions(), rp, cp, uv.double(), uv.double(), eye, skip)
+    with pytest.raises(ValueError, match="device"):
+        call(KltOptions(), rp, cp, uv, uv.cpu(), eye, skip)
+    with pytest.raises(ValueError, match="FAST mode only"):
+        call(KltOptions(method=KltMethod.DIRECT), rp, cp, uv, uv, eye, skip)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        call(KltOptions(patch_row_half_size=200, patch_col_half_size=200),
+             rp, cp, uv, uv, eye, skip)
+    assert call.launches == before
+
+
 @pytest.mark.parametrize("luminance", [False, True])
 def test_lssd_kernel_matches_plain_version(se2_images, luminance):
     ref, cur = se2_images
@@ -391,6 +504,63 @@ def test_raft_lookup_kernel_matches_plain_version(card, shape, radius,
     mat = raft.lookup_correlation(
         raft.compute_correlation_pyramid(f0, f1, levels), locs, radius)
     assert ((got - mat).abs() <= 1e-4 + 1e-4 * mat.abs()).all()
+
+
+def _lookup_case(card, name):
+    """(f0, pyramid, locations, radius, share of queries staged or None for
+    'some but not all') of a named case of the tile-staged lookup."""
+    wide = lookup_inputs(card, 24, 2, 27, 128, 64, 3, spread=0.25)
+    if name == "smooth":             # 27 rows: not a multiple of the tile
+        return (*wide, 3, 1.0)
+    if name == "boundary":           # a tile straddles a 40 px boundary
+        return (wide[0], wide[1], boundary_locations(wide[2], 60, 40.0), 3,
+                1.0)
+    if name == "scattered":          # windows too far apart to stage
+        f0, pyr, locs = lookup_inputs(card, 33, 1, 56, 128, 32, 2,
+                                      spread=0.25)
+        return (f0, pyr, scattered_locations(locs), 3, None)
+    if name == "noisy":              # small chunks
+        return (*lookup_inputs(card, 25, 2, 27, 128, 64, 3, spread=4.0), 3,
+                1.0)
+    if name == "small-map":          # smaller than a tile
+        return (*lookup_inputs(card, 26, 2, 5, 6, 32, 2, spread=1.0), 3, 1.0)
+    if name == "c96":
+        return (*lookup_inputs(card, 27, 2, 20, 30, 96, 3, spread=0.5), 3,
+                1.0)
+    if name == "c100":               # the last chunk holds 4 channels
+        return (*lookup_inputs(card, 28, 1, 20, 30, 100, 2, spread=0.5), 3,
+                1.0)
+    if name == "c130":               # not a multiple of 4: per query
+        return (*lookup_inputs(card, 29, 1, 13, 22, 130, 2, spread=1.0), 3,
+                0.0)
+    if name == "r4":
+        return (*lookup_inputs(card, 30, 2, 20, 30, 64, 3, spread=0.5), 4,
+                1.0)
+    if name == "r4-off-map":
+        return (*lookup_inputs(card, 31, 1, 13, 22, 96, 2), 4, 1.0)
+    assert name == "one-level"
+    return (*lookup_inputs(card, 32, 2, 20, 30, 32, 1, spread=2.0), 3, 1.0)
+
+
+@pytest.mark.parametrize("name", ["smooth", "boundary", "scattered", "noisy",
+                                  "small-map", "c96", "c100", "c130", "r4",
+                                  "r4-off-map", "one-level"])
+def test_raft_lookup_tile_staging_matches_plain_version(card, name):
+    f0, pyr, locs, radius, want_share = _lookup_case(card, name)
+    share = staged_share(locs, [p.shape[1:3] for p in pyr], radius,
+                         f0.shape[-1])["queries"]
+    if want_share is None:
+        assert 0.0 < share < 1.0
+    else:
+        assert share == want_share
+    before = lookup_correlation_cuda.launches
+    got = lookup_correlation_cuda(f0, pyr, locs, radius)
+    torch.cuda.synchronize()
+    assert lookup_correlation_cuda.launches == before + 1
+    want = raft.lookup_correlation_otf(f0, pyr, locs, radius)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all(), (
+        (got - want).abs().max())
 
 
 def test_raft_on_cuda_matches_cpu(card):

@@ -305,3 +305,64 @@ def test_engine_selects_tuple_state_lane_by_lane():
     np.testing.assert_allclose(m.numpy(), np.asarray(want_m), atol=1e-5)
     np.testing.assert_array_equal(m.numpy()[[2, 3]], m0[[2, 3]])  # untouched
     assert steps.tolist()[2:4] == [1, 1]
+
+
+# --- the kernels' build module (no compiler needed here) ---------------------
+
+
+def _fake_nvcc(monkeypatch, tmp_path):
+    """Point the build module at ``tmp_path`` and replace nvcc by a stand-in
+    that records its arguments and writes an empty library."""
+    from feature_tracker_tpu_torch.ops import _build
+
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        open(cmd[cmd.index("-o") + 1], "wb").close()
+        return _build.subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", run)
+    return _build, calls
+
+
+def test_library_path_builds_once_and_per_fmad_setting(monkeypatch, tmp_path):
+    _build, calls = _fake_nvcc(monkeypatch, tmp_path)
+    plain = _build.library_path("ftk_x", ("klt_fast.cu",))
+    fused = _build.library_path("ftk_x", ("klt_fast.cu",), True)
+    assert plain != fused and len(calls) == 2
+    assert "--fmad=false" in calls[0] and "--fmad=true" not in calls[0]
+    assert "--fmad=true" in calls[1] and "--fmad=false" not in calls[1]
+    assert calls[0][-1].endswith("csrc/klt_fast.cu")
+    # Present already: loaded as it is.
+    assert _build.library_path("ftk_x", ("klt_fast.cu",)) == plain
+    assert len(calls) == 2
+    assert _build.build_libraries([("ftk_x", ("klt_fast.cu",)),
+                                   ("ftk_x", ("klt_fast.cu",), True)]) == [
+        plain, fused]
+
+
+def test_phase_clock_library_wraps_the_kernel_source(monkeypatch, tmp_path):
+    _build, calls = _fake_nvcc(monkeypatch, tmp_path)
+    name, sources, fmad = _build.phase_clock_library(
+        "ftk_raft_lookup_phases", "raft_lookup.cu", True)
+    assert name == "ftk_raft_lookup_phases" and fmad is True
+    (wrapper,) = sources
+    text = open(wrapper).read()
+    assert "#define FTK_PHASE_CLOCKS 1" in text
+    assert text.rstrip().endswith('csrc/raft_lookup.cu"')
+    # The kernel's source carries the marks and the header the clocks.
+    csrc = _build.CSRC_DIR
+    assert "FTK_MARK(" in open(f"{csrc}/raft_lookup.cu").read()
+    assert "FTK_MARK(" in open(f"{csrc}/klt_affine.cu").read()
+    assert "ftk_phase_clocks_read" in open(f"{csrc}/klt_common.cuh").read()
+    # The wrapper is the one source handed to the compiler (an absolute
+    # path), and an unchanged kernel leaves it untouched.
+    _build.library_path(name, sources, fmad)
+    assert calls[0][-1] == wrapper
+    before = open(wrapper).read()
+    assert _build.phase_clock_library(name, "raft_lookup.cu", True)[1] == (
+        wrapper,)
+    assert open(wrapper).read() == before

@@ -44,7 +44,9 @@ from feature_tracker_tpu_torch.convert import (
 )
 from feature_tracker_tpu_torch.models import raft
 from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
+    box_capacity,
     lookup_correlation_cuda,
+    staged_share,
 )
 from feature_tracker_tpu_torch.train.raft_eval import flow_metrics
 from feature_tracker_tpu_torch.utils.weights import (
@@ -159,6 +161,99 @@ def test_lookup_of_runaway_locations_is_zero():
         assert torch.isfinite(out).all()
         assert (out[0, 0, :4] == 0).all() and (out[0, 1, :2] == 0).all()
         assert (out[0, 2:] != 0).any()
+
+
+# --- the host mirror of the lookup kernel's staging rule --------------------
+
+STAGE_SHAPES = [(24, 40), (12, 20), (6, 10)]
+
+
+def _grid_locations(b, h, w, seed, sigma):
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(w), np.arange(h))
+    flow = np.float32([1.5, -0.75]) + rng.normal(0, sigma, (b, h, w, 2))
+    return _t((np.stack([gx, gy], -1)[None] + flow).astype(np.float32))
+
+
+def test_box_capacity_shrinks_with_the_chunk():
+    # A stage of (pixels + 64 rows of fmap0) * (chunk + 4 floats of
+    # padding; none at 4 channels) fits 13312 floats.
+    assert [box_capacity(c) for c in (32, 16, 8, 4)] == [305, 601, 1045, 3264]
+
+
+@pytest.mark.parametrize("radius", [3, 4])
+def test_staged_share_of_a_smooth_flow_is_everything(radius):
+    locs = _grid_locations(2, 24, 40, 50, 0.25)
+    share = staged_share(locs, STAGE_SHAPES, radius, channels=128)
+    assert share["tiles"] == 1.0 and share["queries"] == 1.0
+    gw = 2 * radius + 2
+    for lvl, (pixels, chunks) in enumerate(zip(share["box_pixels"],
+                                               share["chunks"])):
+        # An 8x8 tile's corners span 8 / 2^l px and a little flow noise.
+        side = 8 / 2 ** lvl + gw
+        assert (side - 1) ** 2 <= pixels <= (side + 3) ** 2
+        assert sum(chunks.values()) == 2 * 3 * 5          # every tile
+    assert share["chunks"][2][32] == 30                    # small boxes
+    assert share["staged_pixels"] == pytest.approx(
+        30 * sum(share["box_pixels"]))
+
+
+def test_staged_share_at_a_motion_boundary_and_beyond_capacity():
+    locs = _grid_locations(1, 24, 40, 51, 0.1)
+    # Columns 20.. (the middle of the tile 16..23) move 12 px: the box of
+    # the straddling tiles is 12 px wider and still staged, at a smaller
+    # chunk.
+    moved = locs.clone()
+    moved[:, :, 20:, 0] += 12.0
+    base = staged_share(locs, STAGE_SHAPES[:1], 3)
+    share = staged_share(moved, STAGE_SHAPES[:1], 3)
+    assert share["tiles"] == 1.0 and share["queries"] == 1.0
+    assert base["chunks"][0] == {32: 15, 16: 0, 8: 0, 4: 0}
+    # (The windows of the last tile column, 32..39, leave the 40-px map:
+    # no reads, no chunk.)
+    assert share["chunks"][0] == {32: 9, 16: 3, 8: 0, 4: 0}
+    # Windows of one tile 70 x 40 px apart (on a map large enough to hold
+    # them): (8 + 70 + 8) x (8 + 40 + 8) pixels exceed the capacity at 4
+    # channels, so those tiles go query by query; the others stay staged.
+    big = [(64, 128)]
+    far = _grid_locations(1, 64, 128, 52, 0.1)
+    far[:, 1:8:2, :8, 1] += 40.0
+    far[:, :8, 1:8:2, 0] += 70.0
+    share = staged_share(far, big, 3)
+    assert share["tiles"] == pytest.approx(1 - 1 / 128)
+    assert share["queries"] == pytest.approx(1 - 64 / (64 * 128))
+    # At the next level the distances halve and the tile is staged again.
+    assert staged_share(far, [(64, 128), (32, 64)], 3)["tiles"] == (
+        pytest.approx(1 - 1 / 256))
+
+
+def test_staged_share_ignores_locations_without_a_window():
+    locs = _grid_locations(1, 16, 16, 53, 0.1)
+    want = staged_share(locs, [(16, 16)], 3)
+    wild = locs.clone()
+    wild[0, 0, 0] = torch.tensor([float("nan"), 3.0])
+    wild[0, 1, 1] = torch.tensor([1e9, 2.0])
+    wild[0, 2, 2] = torch.tensor([float("inf"), 2.0])
+    wild[0, 3, 3] = torch.tensor([-500.0, 2.0])      # finite, off the map
+    wild[0, 9, 9] = torch.tensor([3.0, 1e6])
+    got = staged_share(wild, [(16, 16)], 3)
+    assert got["tiles"] == 1.0 and got["queries"] == 1.0
+    # None of them widens its tile's box.
+    assert got["chunks"] == want["chunks"]
+    assert got["staged_pixels"] <= want["staged_pixels"]
+    # A tile with no window on the map at all needs no reads: staged.
+    gone = torch.full((1, 8, 8, 2), -100.0)
+    share = staged_share(gone, [(8, 8)], 3)
+    assert share["tiles"] == 1.0 and share["staged_pixels"] == 0
+
+
+@pytest.mark.parametrize("radius,channels", [(3, 130), (2, 128), (0, 64)])
+def test_staged_share_is_zero_for_what_the_staged_path_cannot_take(radius,
+                                                                   channels):
+    locs = _grid_locations(1, 16, 16, 54, 0.1)
+    share = staged_share(locs, [(16, 16), (8, 8)], radius, channels)
+    assert share["tiles"] == 0.0 and share["queries"] == 0.0
+    assert share["staged_pixels"] == 0
 
 
 def test_upsample_flow_convex_matches_jax():

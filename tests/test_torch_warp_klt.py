@@ -457,3 +457,106 @@ def test_tracker_from_jax_round_trip(scene, kind):
     _assert_same(j, tracker.track_single_level(ref, cur, uv))
     with pytest.raises(TypeError, match="no port counterpart"):
         tracker_from_jax(object())
+
+
+# --- the affine tracker's whole-pyramid wrapper -----------------------------
+
+
+def test_affine_pyramid_wrapper_matches_tracker_and_jax(scene):
+    """``affine_track_pyramid_cuda`` on CPU tensors is the plain level
+    loop, which is what ``AffineKlt.track`` runs: bit for bit; and the JAX
+    tracker within UV_TOL with equal statuses. With failed and capped
+    (skipped) lanes."""
+    from feature_tracker_tpu_torch.trackers import klt as torch_klt
+
+    n_cap = N - 3
+    tracker, jtracker = _trackers("affine", KltMethod.FAST, n=n_cap)
+    uv = scene["uv"]
+    status = np.zeros(N, np.int8)
+    status[[2, 9]] = [4, 3]
+    rp, cp = scene["torch"]
+    tu, ts = tracker.track(rp, cp, uv, None, status)
+    _assert_same(jtracker.track(*scene["jax"], jnp.asarray(uv), None,
+                                jnp.asarray(status)), (tu, ts))
+
+    uv_t, st_t = torch.from_numpy(uv), torch.from_numpy(status)
+    skip = torch_klt._skip_mask(N, st_t, tracker.options)
+    assert skip.sum() == 5
+    eye = torch.eye(2).expand(N, 2, 2).contiguous()
+    args = (tracker.options, rp, cp, uv_t, uv_t, eye, skip)
+    before = cuda_warp_klt.affine_track_pyramid_cuda.launches
+    wu, wa, ws = cuda_warp_klt.affine_track_pyramid_cuda(*args)
+    assert cuda_warp_klt.affine_track_pyramid_cuda.launches == before
+    ru, ra, rs, steps = affine.affine_track_pyramid_reference(
+        *args, with_steps=True)
+    assert torch.equal(wu, ru) and torch.equal(wa, ra) and torch.equal(ws, rs)
+    fu, fs = torch_klt._finish(skip, uv_t, st_t, wu, ws, rp[0].shape)
+    assert torch.equal(fu, tu) and torch.equal(fs, ts)
+    # Skipped lanes: position and warp as given, NOT_TRACKED, no steps.
+    assert torch.equal(wu[skip], uv_t[skip]) and torch.equal(wa[skip],
+                                                             eye[skip])
+    assert (ws[skip] == 0).all() and (steps[skip] == 0).all()
+    assert 0 < steps.max() <= LEVELS * tracker.options.max_iterations
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+def test_affine_pyramid_reference_is_the_level_loop(levels):
+    """The plain whole-pyramid version against a level loop written out
+    here: positions scaled down, doubled between levels, A carried."""
+    ref, cur = PAIRS["se2"]()
+    rp = build_pyramid(ref, levels, device="cpu")
+    cp = build_pyramid(cur, levels, device="cpu")
+    opts, _ = _opts()
+    uv = torch.from_numpy(_features(N, H, W, 12, seed=37))
+    cur_uv = uv + torch.tensor([0.75, -0.5])
+    aff = torch.tensor([[1.01, 0.005], [-0.01, 0.99]]).expand(
+        N, 2, 2).contiguous()
+    skip = torch.zeros(N, dtype=torch.bool)
+    skip[3] = True
+    gu, ga, gs = cuda_warp_klt.affine_track_pyramid_cuda(
+        opts, rp, cp, uv, cur_uv, aff, skip)
+    scale = 2.0 ** (levels - 1)
+    s_ref, s_cur, a = uv / scale, cur_uv / scale, aff
+    for lvl in reversed(range(levels)):
+        s_cur, a, st = affine.affine_track_level_reference(
+            opts, rp[lvl], cp[lvl], s_ref, s_cur, a, skip)
+        if lvl:
+            s_ref, s_cur = s_ref * 2.0, s_cur * 2.0
+    assert torch.equal(gu, s_cur) and torch.equal(ga, a)
+    assert torch.equal(gs, st)
+    assert torch.equal(gu[3], cur_uv[3]) and int(gs[3]) == 0
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_affine_pyramid_with_a_level_function_runs_the_level_loop(scene,
+                                                                  method):
+    """``affine_pyramid`` with ``level_fn`` (and DIRECT / INVERSE without)
+    runs its Python level loop, one call per level, and in FAST mode gives
+    what the whole-pyramid route gives."""
+    from feature_tracker_tpu_torch.trackers import klt as torch_klt
+
+    opts, _ = _opts(method)
+    rp, cp = scene["torch"]
+    uv = torch.from_numpy(scene["uv"])
+    status = torch.zeros(N, dtype=torch.int8)
+    calls = []
+
+    def level_fn(*args, **kw):
+        calls.append(args[1].shape)
+        return affine.track_level(*args, **kw)
+
+    lu, ls = torch_klt.affine_pyramid(opts, rp, cp, uv, uv, status,
+                                      level_fn=level_fn)
+    assert calls == [tuple(l.shape) for l in reversed(rp)]
+    du, ds = torch_klt.affine_pyramid(opts, rp, cp, uv, uv, status)
+    assert torch.equal(lu, du) and torch.equal(ls, ds)
+
+
+def test_affine_pyramid_wrapper_refuses_iterative_modes(scene):
+    opts, _ = _opts(KltMethod.DIRECT)
+    rp, cp = scene["torch"]
+    uv = torch.from_numpy(scene["uv"])
+    with pytest.raises(ValueError, match="FAST mode only"):
+        cuda_warp_klt.affine_track_pyramid_cuda(
+            opts, rp, cp, uv, uv, torch.eye(2).expand(N, 2, 2).contiguous(),
+            torch.zeros(N, dtype=torch.bool))
