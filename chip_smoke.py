@@ -16,23 +16,23 @@ Phases (any failed check raises, so the exit code is non-zero):
      basic-KLT kernel (also at the front end's 300 features and with a
      31-row patch, wider than the TPU kernel's limit), the DIRECT / INVERSE
      basic-KLT kernel in both modes, the affine kernel through
-     ``AffineKlt.track`` (one launch for the whole pyramid, held against the
-     plain level loop and, level by level, against its one-level case) and
-     the SE(2) kernel through ``LssdKlt.track`` with luminance off and on,
-     the last two also on a pair rotated by 0.03 rad.
+     ``AffineKlt.track`` and the SE(2) kernel through ``LssdKlt.track``
+     with luminance off and on (each one launch for the whole pyramid, held
+     against the plain level loop and, level by level, against its
+     one-level case), the last two also on a pair rotated by 0.03 rad.
   3. The main paths through the front end, each with the launch counts set
      to 0 just before and read just after:
      ``TrackingFrontEnd(FrontEndConfig(), device="cuda")`` over a 752x480
      sequence translating a little each frame (24 frames, one FAST launch
      per tracked frame), and over 8 frames each with
-     ``tracker=BasicKlt(method=INVERSE)`` and ``AffineKlt`` (one launch per
-     tracked frame) and ``LssdKlt`` (one launch per level and tracked
-     frame): live tracks kept, the median tracked flow equal to the true
-     shift, track ids kept across frames.
+     ``tracker=BasicKlt(method=INVERSE)``, ``AffineKlt`` and ``LssdKlt``
+     (one launch per tracked frame each): live tracks kept, the median
+     tracked flow equal to the true shift, track ids kept across frames.
   4. Timings with CUDA events (warm-up first, median of >= 20 samples),
      each kernel's bound from its bytes and the operations of the steps
-     actually taken, and torch.profiler windows over five headline kernel
-     calls and ten more front-end frames.
+     actually taken, occupancy and phase-clock profiles of the redesigned
+     kernels, and torch.profiler windows over five headline kernel calls
+     and ten more front-end frames.
   5. RAFT inference. The correlation-lookup kernel against its plain
      version at the serving shape (batch 4, 55x128 queries, 128 channels,
      3 levels, radius 3), on locations that leave the map or are NaN,
@@ -86,6 +86,10 @@ WARP_FRAMES = 8                            # front-end frames per new tracker
 # system in float64. The limits are what a float32 system could still meet.
 WARP_UV_P99, WARP_UV_MAX = 1e-3, 5e-2      # px, commonly tracked features
 AFFINE_P99, ROT_P99 = 5e-3, 1e-4           # matrix entries, 99th percentile
+# The SE(2) kernel against its plain level loop, held tighter: at most 0.1 %
+# of the statuses flip (at least 1), and every commonly tracked position and
+# rotation entry agrees (both sides accumulate in float64).
+LSSD_UV_MAX, LSSD_ROT_MAX = 1e-3, 1e-4
 # RAFT: the serving shape, and the limits of its comparisons.
 RAFT_H, RAFT_W, RAFT_B, RAFT_ITERS, RAFT_CALLS = 440, 1024, 4, 6, 3
 RAFT_SHIFTS = ((3.0, -2.0), (-1.5, 2.5))   # (dx, dy) of the pairs, px
@@ -114,6 +118,18 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def clock_line(label: str) -> None:
+    """The card's SM clock, its maximum, power draw and temperature now
+    (nvidia-smi): kernel times are read beside them, since a card that has
+    lowered its clock runs the same kernel slower."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    print(f"[clocks] {label}: SM clock, max, power, temperature: "
+          f"{out.strip().splitlines()[0]}")
 
 
 def cuda_ms(fn, repeats: int = REPEATS, warmup: int = 3,
@@ -230,23 +246,23 @@ def p99_and_max(a, b, both):
 
 
 def compare_warp(label, tracker, rp, cp, uv, status=None):
-    """A warp tracker's ``track`` on the card (the affine tracker: one
-    launch for the whole pyramid; SE(2): one per level) against the level
-    loop through the one-level kernel and through the plain versions.
+    """A warp tracker's ``track`` on the card (one launch for the whole
+    pyramid) against the level loop through the one-level kernel (the same
+    bits) and through the plain versions.
     Returns (max |duv| on commonly tracked features, the kernel run's and
     the plain run's LevelRecorder, the tracker's uv and status)."""
     from feature_tracker_tpu_torch.ops import cuda_warp_klt as cw
     from feature_tracker_tpu_torch.trackers import klt
 
     kind = "affine" if isinstance(tracker, klt.AffineKlt) else "lssd"
-    wrapper, expected = ((cw.affine_track_pyramid_cuda, 1) if kind == "affine"
-                         else (cw.lssd_track_level_cuda, len(rp)))
+    wrapper = (cw.affine_track_pyramid_cuda if kind == "affine"
+               else cw.lssd_track_pyramid_cuda)
     before = wrapper.launches
     tu, tst = tracker.track(rp, cp, uv, None, status)
     torch.cuda.synchronize()
-    check(wrapper.launches == before + expected,
+    check(wrapper.launches == before + 1,
           f"{label}: {wrapper.launches - before} launches in track(), "
-          f"expected {expected}")
+          "expected 1")
     ref_uv, cur_uv, st0 = tracker._prep(uv, None, status)
 
     def run(plain):
@@ -265,8 +281,9 @@ def compare_warp(label, tracker, rp, cp, uv, status=None):
     (pu, pst), prec = run(plain=True)
     check(torch.equal(ku, tu) and torch.equal(kst, tst),
           f"{label}: track() and its level loop disagree")
+    flips = len(ku) // (100 if kind == "affine" else 1000)
     both = status_agreement(label, kst.cpu().numpy(), pst.cpu().numpy(),
-                            max(1, len(ku) // 100))
+                            max(1, flips))
     uv_p99, uv_max = p99_and_max(ku, pu, both)
     # The warp of the finest level: affine, or rotation.
     m_p99, m_max = p99_and_max(krec.levels[-1]["out"][1 if kind == "affine"
@@ -282,6 +299,10 @@ def compare_warp(label, tracker, rp, cp, uv, status=None):
     check(uv_p99 <= WARP_UV_P99, f"{label}: p99 |duv| {uv_p99}")
     check(uv_max <= WARP_UV_MAX, f"{label}: max |duv| {uv_max}")
     check(m_p99 <= m_lim, f"{label}: p99 {m_name} difference {m_p99}")
+    if kind == "lssd":
+        check(uv_max <= LSSD_UV_MAX and m_max <= LSSD_ROT_MAX,
+              f"{label}: max |duv| {uv_max}, max rotation difference "
+              f"{m_max}")
     return uv_max, krec, prec, tu, tst
 
 
@@ -931,6 +952,7 @@ def main() -> int:
     )
     from feature_tracker_tpu_torch.trackers.klt.lssd import (
         lssd_track_level_reference,
+        lssd_track_pyramid_reference,
     )
 
     dev = torch.device("cuda")
@@ -947,10 +969,14 @@ def main() -> int:
     libraries = [cuda_klt.FAST_LIBRARY, cuda_klt.ITER_LIBRARY,
                  cuda_warp_klt.AFFINE_LIBRARY, cuda_warp_klt.LSSD_LIBRARY,
                  cuda_raft_lookup.LOOKUP_LIBRARY]
-    # And the two redesigned kernels once more with phase clocks compiled
-    # in, for the profiles printed with their timings.
-    profiled = [_build.phase_clock_library("ftk_klt_affine_phases",
+    # And the redesigned kernels once more with phase clocks compiled in,
+    # for the profiles printed with their timings.
+    profiled = [_build.phase_clock_library("ftk_klt_iter_phases",
+                                           "klt_iter.cu"),
+                _build.phase_clock_library("ftk_klt_affine_phases",
                                            "klt_affine.cu"),
+                _build.phase_clock_library("ftk_klt_lssd_phases",
+                                           "klt_lssd.cu"),
                 _build.phase_clock_library("ftk_raft_lookup_phases",
                                            "raft_lookup.cu", True)]
     lib_paths = _build.build_libraries(libraries + profiled)[:len(libraries)]
@@ -1092,7 +1118,7 @@ def main() -> int:
             ("affine", AffineKlt(cfg.klt),
              cuda_warp_klt.affine_track_pyramid_cuda, 1),
             ("lssd", LssdKlt(cfg.klt, False),
-             cuda_warp_klt.lssd_track_level_cuda, cfg.pyramid_levels)):
+             cuda_warp_klt.lssd_track_pyramid_cuda, 1)):
         path_launches[label], _, path_s = drive_front_end(
             label, TrackingFrontEnd(cfg, tracker=tracker, device="cuda"),
             frames[:WARP_FRAMES], wrapper, per_frame, cfg.min_live_tracks,
@@ -1102,6 +1128,7 @@ def main() -> int:
               f"{float(np.median(path_s[2:])) * 1e3:.4f} ms")
 
     # 4. Timings (the launches here are not the main paths').
+    clock_line("before the KLT timings")
     kernel_ms = cuda_ms(lambda: cuda_klt.track_pyramid_fast_cuda(
         opts, rp, cp, uv, uv, no_skip), batch=10)
     call_ms = cuda_ms(lambda: cuda_klt.track_pyramid_fast_cuda(
@@ -1165,6 +1192,14 @@ def main() -> int:
               f"{m_ms:.4f} ms per launch back to back, {m_call:.4f} ms per "
               f"lone call; plain {m_plain:.4f} ms; bound {m_bound:.4f} ms by "
               f"{m_by} ({m_bytes} B, {m_flops} FLOP, {m_steps} GN steps)")
+        occ = cuda_klt.iter_occupancy(mopts)
+        print(f"[time] klt iter kernel: {occ['registers']} registers, "
+              f"{occ['warps_per_block']} warps a block, "
+              f"{occ['blocks_per_sm']} blocks = {occ['warps_per_sm']} warps "
+              "resident per SM")
+        print_phases(f"klt iter kernel {method.value}, headline pair",
+                     cuda_klt.iter_phase_clocks(mopts, rp, cp, uv, uv, fresh,
+                                                no_skip), N, "feature")
         if method == KltMethod.INVERSE:
             kernels.append({
                 "name": "klt_iter_pyramid",
@@ -1177,74 +1212,73 @@ def main() -> int:
                 "bound_by": m_by, "library_ms": None,
             })
 
-    # The warp kernels. Each level is timed through the one-level wrapper at
-    # the inputs the headline track() gave it. The SE(2) tracker launches
-    # one kernel per level: its entry in the kernels line carries level 0
-    # (752x480), the largest. The affine tracker launches one kernel for the
-    # whole pyramid: its entry carries that launch, its bound the sum over
-    # the levels, its plain time the plain level loop.
+    # The warp kernels: each launches one kernel for the whole pyramid, and
+    # its entry in the kernels line carries that launch, its bound the sum
+    # over the levels, its plain time the plain level loop. Each level is
+    # also timed through the one-level wrapper at the inputs the headline
+    # track() gave it.
+    eye = torch.eye(2, device=dev).expand(N, 2, 2).contiguous()
     for tname, tracker in trackers.items():
         kind = tname.split()[0]
         lum = kind == "lssd" and tracker.consider_patch_luminance
         krec, prec = warp_recs[tname]
-        wrapper, plain_fn = (
-            (cuda_warp_klt.affine_track_level_cuda,
-             affine_track_level_reference) if kind == "affine" else
-            (cuda_warp_klt.lssd_track_level_cuda, lssd_track_level_reference))
+        if kind == "affine":
+            wrapper, plain_fn = (cuda_warp_klt.affine_track_level_cuda,
+                                 affine_track_level_reference)
+            pyramid = cuda_warp_klt.affine_track_pyramid_cuda
+            plain_pyramid = affine_track_pyramid_reference
+            p_args = (tracker.options, rp, cp, uv, uv, eye, no_skip)
+            occ = cuda_warp_klt.affine_occupancy(tracker.options)
+            phase_clocks = cuda_warp_klt.affine_phase_clocks
+        else:
+            wrapper, plain_fn = (cuda_warp_klt.lssd_track_level_cuda,
+                                 lssd_track_level_reference)
+            pyramid = cuda_warp_klt.lssd_track_pyramid_cuda
+            plain_pyramid = lssd_track_pyramid_reference
+            p_args = (tracker.options, lum, rp, cp, uv, uv, eye, no_skip)
+            occ = cuda_warp_klt.lssd_occupancy(tracker.options, lum)
+            phase_clocks = cuda_warp_klt.lssd_phase_clocks
         rows = []
         for depth, (klvl, plvl) in enumerate(zip(krec.levels, prec.levels)):
             lvl = LEVELS - 1 - depth
             args = klvl["args"]
             l_ms = cuda_ms(lambda: wrapper(tracker.options, *args), batch=10)
             l_plain = cuda_ms(lambda: plain_fn(tracker.options, *args),
-                              repeats=20, warmup=2)
+                              repeats=10, warmup=1)
             l_steps = int(plvl["steps"].sum())
             l_bytes, l_flops = warp_level_work(
                 kind, tracker.options, pyr_shapes[lvl], N, N, l_steps, lum)
             l_bound, l_by = bound(l_bytes, l_flops)
             rows.append((l_ms, l_plain, l_bytes, l_flops, l_steps))
             print(f"[time] {tname} kernel level {lvl} "
-                  f"{pyr_shapes[lvl][1]}x{pyr_shapes[lvl][0]} N=10240: "
-                  f"{l_ms:.4f} ms per launch back to back; plain "
-                  f"{l_plain:.4f} ms; bound {l_bound:.4f} ms by {l_by} "
-                  f"({l_bytes} B, {l_flops} FLOP, {l_steps} GN steps)")
+                  f"{pyr_shapes[lvl][1]}x{pyr_shapes[lvl][0]} N=10240 (one-"
+                  f"level launch): {l_ms:.4f} ms per launch back to back; "
+                  f"plain {l_plain:.4f} ms; bound {l_bound:.4f} ms by "
+                  f"{l_by} ({l_bytes} B, {l_flops} FLOP, {l_steps} GN "
+                  "steps)")
         track_ms = cuda_ms(lambda: tracker.track(rp, cp, uv))
-        if kind == "affine":
-            eye = torch.eye(2, device=dev).expand(N, 2, 2).contiguous()
-            p_args = (tracker.options, rp, cp, uv, uv, eye, no_skip)
-            k_ms = cuda_ms(lambda: cuda_warp_klt.affine_track_pyramid_cuda(
-                *p_args), batch=10)
-            k_plain = cuda_ms(lambda: affine_track_pyramid_reference(*p_args),
-                              repeats=10, warmup=2)
-            k_bound, k_by = bound(sum(r[2] for r in rows),
-                                  sum(r[3] for r in rows))
-            occ = cuda_warp_klt.affine_occupancy(tracker.options)
-            print(f"[time] affine whole-pyramid kernel 752x480 L=4 N=10240: "
-                  f"{k_ms:.4f} ms per launch back to back; plain level loop "
-                  f"{k_plain:.4f} ms; bound {k_bound:.4f} ms by {k_by} (sum "
-                  f"over the levels, {sum(r[4] for r in rows)} GN steps); "
-                  f"{occ['registers']} registers, {occ['warps_per_block']} "
-                  f"warps a block, {occ['blocks_per_sm']} blocks = "
-                  f"{occ['warps_per_sm']} warps resident per SM")
-            print(f"[time] affine track() 752x480 L=4 N=10240 (one launch): "
-                  f"{track_ms:.4f} ms per lone call; the four levels "
-                  f"launched one by one {sum(r[0] for r in rows):.4f} ms")
-            check(occ["warps_per_sm"] >= 16,
-                  f"affine kernel: {occ['warps_per_sm']} warps per SM")
-            print_phases("affine whole-pyramid kernel, headline pair",
-                         cuda_warp_klt.affine_phase_clocks(*p_args), N,
-                         "feature")
-        else:
-            l_ms, l_plain, l_bytes, l_flops, _ = rows[-1]
-            k_ms, k_plain = l_ms, l_plain
-            k_bound, k_by = bound(l_bytes, l_flops)
-            print(f"[time] {tname} track() 752x480 L=4 N=10240 ({LEVELS} "
-                  f"launches and the level loop): {track_ms:.4f} ms per lone "
-                  f"call; kernels alone {sum(r[0] for r in rows):.4f} ms")
+        k_ms = cuda_ms(lambda: pyramid(*p_args), batch=10)
+        k_plain = cuda_ms(lambda: plain_pyramid(*p_args), repeats=10,
+                          warmup=2)
+        k_bound, k_by = bound(sum(r[2] for r in rows),
+                              sum(r[3] for r in rows))
+        print(f"[time] {tname} whole-pyramid kernel 752x480 L=4 N=10240: "
+              f"{k_ms:.4f} ms per launch back to back; plain level loop "
+              f"{k_plain:.4f} ms; bound {k_bound:.4f} ms by {k_by} (sum "
+              f"over the levels, {sum(r[4] for r in rows)} GN steps); "
+              f"{occ['registers']} registers, {occ['warps_per_block']} "
+              f"warps a block, {occ['blocks_per_sm']} blocks = "
+              f"{occ['warps_per_sm']} warps resident per SM")
+        print(f"[time] {tname} track() 752x480 L=4 N=10240 (one launch): "
+              f"{track_ms:.4f} ms per lone call; the four levels launched "
+              f"one by one {sum(r[0] for r in rows):.4f} ms")
+        check(occ["warps_per_sm"] >= 16,
+              f"{tname} kernel: {occ['warps_per_sm']} warps per SM")
+        print_phases(f"{tname} whole-pyramid kernel, headline pair",
+                     phase_clocks(*p_args), N, "feature")
         if tname in ("affine", "lssd"):   # the front-end paths above
             kernels.append({
-                "name": ("klt_affine_pyramid" if kind == "affine"
-                         else "klt_lssd_level"),
+                "name": f"klt_{kind}_pyramid",
                 "route": "cuda",
                 "source": f"feature_tracker_tpu_torch/csrc/klt_{kind}.cu",
                 "replaces": "feature_tracker_tpu/ops/pallas_warp_klt.py:"
@@ -1254,6 +1288,7 @@ def main() -> int:
                 "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
                 "bound_by": k_by, "library_ms": None,
             })
+    clock_line("after the KLT timings")
     print(f"[time] card: {card}")
 
     profile_window("klt kernel 752x480 L=4 N=10240",

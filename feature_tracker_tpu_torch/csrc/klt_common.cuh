@@ -207,6 +207,27 @@ __device__ __forceinline__ int load_extended_patch(const float* img, int h,
   return n_valid;
 }
 
+// Row and column of the entries p = lane, lane + 32, lane + 64, ... of a
+// row-major block with `cols` columns, stepped without a division: an
+// integer division by a value known only at run time is some twenty
+// instructions, and the loops over a patch took one for every entry.
+struct PatchWalk {
+  int i, j, di, dj, cols;
+  __device__ __forceinline__ PatchWalk(int lane, int cols_) : cols(cols_) {
+    i = lane / cols;
+    j = lane - i * cols;
+    di = 32 / cols;
+    dj = 32 - di * cols;
+  }
+  __device__ __forceinline__ void next() {
+    j += dj;
+    i += di;
+    const bool wrap = j >= cols;
+    j -= wrap ? cols : 0;
+    i += wrap;
+  }
+};
+
 // The same patch with the loads of U pixels sent out together: a tap outside
 // the image reads pixel (0, 0) and is discarded, so no load waits behind a
 // branch (with the branch each trip of the loop above waits out its four
@@ -218,14 +239,15 @@ __device__ __forceinline__ int load_extended_patch_batched(
   const int min_r = a.r - epr / 2, min_c = a.c - epc / 2;
   const int ex_n = epr * epc;
   int n_valid = 0;
+  PatchWalk at(lane, epc);
   for (int p0 = lane; p0 < ex_n; p0 += 32 * U) {
     float t[U][4];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = p0 + 32 * u;
-      const int i = p / epc, j = p - i * epc;
-      const int r = min_r + i, c = min_c + j;
+      const int r = min_r + at.i, c = min_c + at.j;
+      at.next();
       ok[u] = p < ex_n && tap_valid(r, c, h, w);
       const float* q = img + (ok[u] ? (size_t)r * w + c : 0);
       t[u][0] = q[0], t[u][1] = q[1], t[u][2] = q[w], t[u][3] = q[w + 1];

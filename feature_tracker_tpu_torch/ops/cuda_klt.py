@@ -53,12 +53,20 @@ def load_klt_library() -> ctypes.CDLL:
                 [_VP] * 4 + [_INT] + [_VP] * 5 + [_INT] * 5 + [_FLOAT, _VP])
 
 
+_ITER_ARGTYPES = [_VP] * 4 + [_INT] + [_VP] * 6 + [_INT] * 5 + [_FLOAT, _VP]
+# The phases csrc/klt_iter.cu marks, in its order.
+ITER_PHASES = ("level setup", "step patch", "step pixels", "step reduction",
+               "step solve")
+
+
 @functools.lru_cache(maxsize=None)
 def load_klt_iter_library() -> ctypes.CDLL:
     """Build (at first use) and load the DIRECT / INVERSE kernel's
     library."""
-    return bind(ITER_LIBRARY, "ftk_klt_iter_pyramid",
-                [_VP] * 4 + [_INT] + [_VP] * 6 + [_INT] * 5 + [_FLOAT, _VP])
+    lib = bind(ITER_LIBRARY, "ftk_klt_iter_pyramid", _ITER_ARGTYPES)
+    lib.ftk_klt_iter_occupancy.argtypes = [_INT, _INT, _INT, _VP, _VP, _VP]
+    lib.ftk_klt_iter_occupancy.restype = _INT
+    return lib
 
 
 def check(cond: bool, where: str, msg: str) -> None:
@@ -124,18 +132,55 @@ def read_phase_clocks(lib, names) -> dict:
             "share": {n: c / total for n, c in zip(names, counters)}}
 
 
-def _launch_pyramid(wrapper, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
-                    cur_uv, status, skip):
-    """Check the inputs and launch the FAST kernel (``status`` None) or the
-    DIRECT / INVERSE kernel."""
-    where = wrapper.__name__
-    dev = ref_uv.device
+def check_pyramids(where: str, dev, ref_pyr, cur_pyr) -> int:
+    """Both pyramids hold 1..MAX_LEVELS levels (:func:`check_images`);
+    returns their number."""
     levels = len(ref_pyr)
-    n = ref_uv.shape[0]
     check(1 <= levels <= MAX_LEVELS and len(cur_pyr) == levels, where,
           f"need 1..{MAX_LEVELS} levels in both pyramids, got "
           f"{levels} and {len(cur_pyr)}")
     check_images(where, dev, ref_pyr, cur_pyr)
+    return levels
+
+
+def pyramid_args(ref_pyr, cur_pyr) -> list:
+    """The level pointers and sizes as the C entries take them: four host
+    arrays."""
+    levels = len(ref_pyr)
+    ptrs = ctypes.c_void_p * levels
+    ints = ctypes.c_int * levels
+    return [ctypes.cast(a, _VP) for a in (
+        ptrs(*[im.data_ptr() for im in ref_pyr]),
+        ptrs(*[im.data_ptr() for im in cur_pyr]),
+        ints(*[im.shape[0] for im in ref_pyr]),
+        ints(*[im.shape[1] for im in ref_pyr]))]
+
+
+def occupancy(lib, function: str, opts: KltOptions, *extra: int) -> dict:
+    """What the current card holds of a kernel at ``opts``' patch size, from
+    its library's ``function`` (``ftk_*_occupancy``, which takes the two
+    half sizes, ``extra`` and three outputs): ``registers`` a thread,
+    ``warps_per_block``, ``blocks_per_sm`` (from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and their product
+    ``warps_per_sm``. Nothing is launched."""
+    regs, warps, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    rc = getattr(lib, function)(
+        opts.patch_row_half_size, opts.patch_col_half_size, *extra,
+        *(ctypes.cast(ctypes.pointer(v), _VP) for v in (regs, warps, blocks)))
+    raise_on_error(lib, function, rc)
+    return {"registers": regs.value, "warps_per_block": warps.value,
+            "blocks_per_sm": blocks.value,
+            "warps_per_sm": warps.value * blocks.value}
+
+
+def _launch_pyramid(where: str, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
+                    cur_uv, status, skip, iter_lib=None):
+    """Check the inputs and launch the FAST kernel (``status`` None) or the
+    DIRECT / INVERSE kernel (of ``iter_lib`` if given). Returns the outputs
+    and whether a kernel was launched (not for zero features)."""
+    dev = ref_uv.device
+    levels = check_pyramids(where, dev, ref_pyr, cur_pyr)
+    n = ref_uv.shape[0]
     check_features(where, dev, n, skip, ref_uv=(ref_uv, (2,)),
                    cur_uv=(cur_uv, (2,)))
     if status is not None:
@@ -146,14 +191,8 @@ def _launch_pyramid(wrapper, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
     out_uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
     out_st = torch.empty((n,), dtype=torch.int8, device=dev)
     if n == 0:
-        return out_uv, out_st
-    ptrs = ctypes.c_void_p * levels
-    ints = ctypes.c_int * levels
-    pyramids = [ctypes.cast(a, ctypes.c_void_p) for a in (
-        ptrs(*[im.data_ptr() for im in ref_pyr]),
-        ptrs(*[im.data_ptr() for im in cur_pyr]),
-        ints(*[im.shape[0] for im in ref_pyr]),
-        ints(*[im.shape[1] for im in ref_pyr]))]
+        return (out_uv, out_st), False
+    pyramids = pyramid_args(ref_pyr, cur_pyr)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if status is None:
@@ -165,7 +204,8 @@ def _launch_pyramid(wrapper, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
                 opts.max_iterations, opts.max_tolerance_large_step,
                 float(opts.max_converge_step), stream)
         else:
-            lib, function = load_klt_iter_library(), "ftk_klt_iter_pyramid"
+            lib = iter_lib or load_klt_iter_library()
+            function = "ftk_klt_iter_pyramid"
             rc = lib.ftk_klt_iter_pyramid(
                 *pyramids, levels, ref_uv.data_ptr(), cur_uv.data_ptr(),
                 status.data_ptr(), skip.data_ptr(), out_uv.data_ptr(),
@@ -174,8 +214,7 @@ def _launch_pyramid(wrapper, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
                 opts.patch_row_half_size, opts.patch_col_half_size,
                 opts.max_iterations, float(opts.max_converge_step), stream)
     raise_on_error(lib, function, rc)
-    wrapper.launches += 1
-    return out_uv, out_st
+    return (out_uv, out_st), True
 
 
 def track_pyramid_fast_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
@@ -203,8 +242,10 @@ def track_pyramid_fast_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
                                             cur_uv, skip)
     check(ref_uv.device.type == "cuda", "track_pyramid_fast_cuda",
           f"unsupported device {ref_uv.device}")
-    return _launch_pyramid(track_pyramid_fast_cuda, opts, ref_pyr, cur_pyr,
-                           ref_uv, cur_uv, None, skip)
+    out, launched = _launch_pyramid("track_pyramid_fast_cuda", opts, ref_pyr,
+                                    cur_pyr, ref_uv, cur_uv, None, skip)
+    track_pyramid_fast_cuda.launches += launched
+    return out
 
 
 def track_pyramid_iter_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
@@ -231,8 +272,34 @@ def track_pyramid_iter_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
                                             cur_uv, status, skip)
     check(ref_uv.device.type == "cuda", "track_pyramid_iter_cuda",
           f"unsupported device {ref_uv.device}")
-    return _launch_pyramid(track_pyramid_iter_cuda, opts, ref_pyr, cur_pyr,
-                           ref_uv, cur_uv, status, skip)
+    out, launched = _launch_pyramid("track_pyramid_iter_cuda", opts, ref_pyr,
+                                    cur_pyr, ref_uv, cur_uv, status, skip)
+    track_pyramid_iter_cuda.launches += launched
+    return out
+
+
+def iter_phase_clocks(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
+                      status, skip) -> dict:
+    """Where the DIRECT / INVERSE kernel's time goes on these CUDA inputs
+    (``opts.method``): one launch of its build with phase clocks, then the
+    shares of ``ITER_PHASES`` (:func:`read_phase_clocks`). A diagnostic:
+    the launch is in no wrapper's count."""
+    check(opts.method != KltMethod.FAST, "iter_phase_clocks",
+          "DIRECT/INVERSE only")
+    lib = bind_phase_clocks("ftk_klt_iter_phases", "klt_iter.cu",
+                            "ftk_klt_iter_pyramid", _ITER_ARGTYPES)
+    read_phase_clocks(lib, ITER_PHASES)
+    _launch_pyramid("iter_phase_clocks", opts, ref_pyr, cur_pyr, ref_uv,
+                    cur_uv, status, skip, iter_lib=lib)
+    torch.cuda.synchronize(ref_uv.device)
+    return read_phase_clocks(lib, ITER_PHASES)
+
+
+def iter_occupancy(opts: KltOptions) -> dict:
+    """:func:`occupancy` of the DIRECT / INVERSE kernel that ``opts``
+    launches."""
+    return occupancy(load_klt_iter_library(), "ftk_klt_iter_occupancy", opts,
+                     int(opts.method == KltMethod.INVERSE))
 
 
 track_pyramid_fast_cuda.launches = 0

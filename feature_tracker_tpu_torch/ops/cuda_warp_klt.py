@@ -1,18 +1,18 @@
 """CUDA kernels for the warped KLT trackers (affine and SE(2)/LSSD), FAST
 mode — the counterpart of ``feature_tracker_tpu/ops/pallas_warp_klt.py``.
 
-``csrc/klt_affine.cu`` runs one warp per feature through the whole
-coarse-to-fine loop in one launch (one level is a pyramid of one);
-``csrc/klt_lssd.cu`` runs one level's Gauss-Newton loop per launch. Their
-headers state what they compute, their solver, their bound on an H100 and
-their design. They are built by ``nvcc`` at first use (``ops/_build.py``)
-and called through ``ctypes`` on PyTorch's current stream.
+``csrc/klt_affine.cu`` and ``csrc/klt_lssd.cu`` each run one warp per
+feature through the whole coarse-to-fine loop in one launch (one level is a
+pyramid of one). Their headers state what they compute, their solver, their
+bound on an H100 and their design. They are built by ``nvcc`` at first use
+(``ops/_build.py``) and called through ``ctypes`` on PyTorch's current
+stream.
 
-:func:`affine_track_pyramid_cuda`, :func:`affine_track_level_cuda` and
-:func:`lssd_track_level_cuda` dispatch by the tensors' device: CPU tensors
-take the plain PyTorch versions (``trackers/klt/affine.py``,
-``trackers/klt/lssd.py``), CUDA tensors the kernels. A CUDA input a kernel
-cannot take raises; there is no fallback.
+:func:`affine_track_pyramid_cuda`, :func:`affine_track_level_cuda`,
+:func:`lssd_track_pyramid_cuda` and :func:`lssd_track_level_cuda` dispatch
+by the tensors' device: CPU tensors take the plain PyTorch versions
+(``trackers/klt/affine.py``, ``trackers/klt/lssd.py``), CUDA tensors the
+kernels. A CUDA input a kernel cannot take raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -24,12 +24,13 @@ import torch
 
 from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
 from feature_tracker_tpu_torch.ops.cuda_klt import (
-    MAX_LEVELS,
     bind,
     bind_phase_clocks,
     check,
     check_features,
-    check_images,
+    check_pyramids,
+    occupancy,
+    pyramid_args,
     raise_on_error,
     read_phase_clocks,
 )
@@ -56,12 +57,20 @@ def load_affine_library() -> ctypes.CDLL:
     return lib
 
 
+_LSSD_ARGTYPES = ([_VP] * 4 + [_INT] + [_VP] * 9 + [_INT] * 6
+                  + [_FLOAT, _VP])
+# The phases csrc/klt_lssd.cu marks, in its order.
+LSSD_PHASES = ("patch", "pass 1", "means", "pass 2", "step reduction",
+               "step solve")
+
+
 @functools.lru_cache(maxsize=None)
 def load_lssd_library() -> ctypes.CDLL:
     """Build (at first use) and load the SE(2) kernel's library."""
-    return bind(LSSD_LIBRARY, "ftk_klt_lssd_level",
-                [_VP, _VP, _INT, _INT] + [_VP] * 7 + [_INT] * 6
-                + [_FLOAT, _VP])
+    lib = bind(LSSD_LIBRARY, "ftk_klt_lssd_pyramid", _LSSD_ARGTYPES)
+    lib.ftk_klt_lssd_occupancy.argtypes = [_INT, _INT, _INT, _VP, _VP, _VP]
+    lib.ftk_klt_lssd_occupancy.restype = _INT
+    return lib
 
 
 def _fast_only(where: str, opts: KltOptions) -> None:
@@ -76,12 +85,8 @@ def _launch_affine(where: str, lib, opts: KltOptions, ref_pyr, cur_pyr,
     (finest level first; positions at full resolution). Returns the outputs
     and whether a kernel was launched (not for zero features)."""
     dev = ref_uv.device
-    levels = len(ref_pyr)
+    levels = check_pyramids(where, dev, ref_pyr, cur_pyr)
     n = ref_uv.shape[0]
-    check(1 <= levels <= MAX_LEVELS and len(cur_pyr) == levels, where,
-          f"need 1..{MAX_LEVELS} levels in both pyramids, got "
-          f"{levels} and {len(cur_pyr)}")
-    check_images(where, dev, ref_pyr, cur_pyr)
     check_features(where, dev, n, skip, ref_uv=(ref_uv, (2,)),
                    cur_uv=(cur_uv, (2,)), affine=(affine, (2, 2)))
     out_uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -89,18 +94,11 @@ def _launch_affine(where: str, lib, opts: KltOptions, ref_pyr, cur_pyr,
     out_st = torch.empty((n,), dtype=torch.int8, device=dev)
     if n == 0:
         return (out_uv, out_aff, out_st), False
-    ptrs = ctypes.c_void_p * levels
-    ints = ctypes.c_int * levels
-    pyramids = [ctypes.cast(a, _VP) for a in (
-        ptrs(*[im.data_ptr() for im in ref_pyr]),
-        ptrs(*[im.data_ptr() for im in cur_pyr]),
-        ints(*[im.shape[0] for im in ref_pyr]),
-        ints(*[im.shape[1] for im in ref_pyr]))]
     with torch.cuda.device(dev):
         rc = lib.ftk_klt_affine_pyramid(
-            *pyramids, levels, ref_uv.data_ptr(), cur_uv.data_ptr(),
-            affine.data_ptr(), skip.data_ptr(), out_uv.data_ptr(),
-            out_aff.data_ptr(), out_st.data_ptr(), n,
+            *pyramid_args(ref_pyr, cur_pyr), levels, ref_uv.data_ptr(),
+            cur_uv.data_ptr(), affine.data_ptr(), skip.data_ptr(),
+            out_uv.data_ptr(), out_aff.data_ptr(), out_st.data_ptr(), n,
             opts.patch_row_half_size, opts.patch_col_half_size,
             opts.max_iterations, opts.max_tolerance_large_step,
             float(opts.max_converge_step),
@@ -193,24 +191,112 @@ def affine_phase_clocks(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
 
 
 def affine_occupancy(opts: KltOptions) -> dict:
-    """What the current card holds of the affine kernel at ``opts``' patch
-    size: ``registers`` a thread, ``warps_per_block``, ``blocks_per_sm``
-    (from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and their
-    product ``warps_per_sm``. Nothing is launched."""
-    lib = load_affine_library()
-    regs, warps, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    rc = lib.ftk_klt_affine_occupancy(
-        opts.patch_row_half_size, opts.patch_col_half_size,
-        *(ctypes.cast(ctypes.pointer(v), _VP) for v in (regs, warps, blocks)))
-    raise_on_error(lib, "ftk_klt_affine_occupancy", rc)
-    return {"registers": regs.value, "warps_per_block": warps.value,
-            "blocks_per_sm": blocks.value,
-            "warps_per_sm": warps.value * blocks.value}
+    """:func:`cuda_klt.occupancy` of the affine kernel at ``opts``' patch
+    size."""
+    return occupancy(load_affine_library(), "ftk_klt_affine_occupancy",
+                     opts)
+
+
+def _launch_lssd(where: str, lib, opts: KltOptions, luminance: bool,
+                 ref_pyr, cur_pyr, ref_uv, rot, skip, cur_uv=None, t=None):
+    """Check the inputs and launch ``lib``'s SE(2) kernel on a pyramid
+    (finest level first) with ``cur_uv`` (full resolution: the whole-pyramid
+    case, returns ``(uv, rot, status)``) or ``t`` (the coarsest level's
+    translation: the one-level case, returns ``(rot, t, status)``). Also
+    returns whether a kernel was launched (not for zero features)."""
+    dev = ref_uv.device
+    levels = check_pyramids(where, dev, ref_pyr, cur_pyr)
+    n = ref_uv.shape[0]
+    given = {"cur_uv": (cur_uv, (2,))} if t is None else {"t": (t, (2,))}
+    check_features(where, dev, n, skip, ref_uv=(ref_uv, (2,)),
+                   rot=(rot, (2, 2)), **given)
+    out_v = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    out_rot = torch.empty((n, 2, 2), dtype=torch.float32, device=dev)
+    out_st = torch.empty((n,), dtype=torch.int8, device=dev)
+    out = ((out_v, out_rot, out_st) if t is None
+           else (out_rot, out_v, out_st))
+    if n == 0:
+        return out, False
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    with torch.cuda.device(dev):
+        rc = lib.ftk_klt_lssd_pyramid(
+            *pyramid_args(ref_pyr, cur_pyr), levels, ref_uv.data_ptr(),
+            ptr(cur_uv), ptr(t), rot.data_ptr(), skip.data_ptr(),
+            out_v.data_ptr() if t is None else None, out_rot.data_ptr(),
+            None if t is None else out_v.data_ptr(), out_st.data_ptr(), n,
+            int(bool(luminance)), opts.patch_row_half_size,
+            opts.patch_col_half_size, opts.max_iterations,
+            opts.max_tolerance_large_step, float(opts.max_converge_step),
+            torch.cuda.current_stream(dev).cuda_stream)
+    raise_on_error(lib, "ftk_klt_lssd_pyramid", rc)
+    return out, True
+
+
+def lssd_track_pyramid_cuda(opts: KltOptions, luminance: bool, ref_pyr,
+                            cur_pyr, ref_uv, cur_uv, rot, skip):
+    """Whole-pyramid FAST-mode SE(2) KLT in one kernel launch.
+
+    Args:
+      luminance: divide both patches by their means.
+      ref_pyr, cur_pyr: sequences of ``[H_l, W_l]`` float32 levels, finest
+        first (at most 8).
+      ref_uv, cur_uv: ``[N, 2]`` float32 full-resolution positions.
+      rot: ``[N, 2, 2]`` float32, the rotation at the coarsest level; it is
+        carried from level to level. ``t = cur_uv - R ref_uv`` at the
+        coarsest scale, and only ``t`` doubles between levels.
+      skip: ``[N]`` bool; skipped lanes keep ``rot`` and their ``t`` and
+        return NOT_TRACKED.
+
+    Returns ``(uv = R ref_uv + t [N, 2] at full resolution, rot [N, 2, 2],
+    status [N] int8 of the finest level)``; the final outside check and the
+    skip pass-through of the input position and status are the caller's.
+    CPU tensors take the plain PyTorch version (the level loop over the
+    one-level plain version); CUDA tensors launch the kernel (counted in
+    ``lssd_track_pyramid_cuda.launches``) or raise."""
+    from feature_tracker_tpu_torch.trackers.klt.lssd import (
+        lssd_track_pyramid_reference,
+    )
+    where = "lssd_track_pyramid_cuda"
+    _fast_only(where, opts)
+    if ref_uv.device.type == "cpu":
+        return lssd_track_pyramid_reference(opts, luminance, ref_pyr,
+                                            cur_pyr, ref_uv, cur_uv, rot,
+                                            skip)
+    check(ref_uv.device.type == "cuda", where,
+          f"unsupported device {ref_uv.device}")
+    out, launched = _launch_lssd(where, load_lssd_library(), opts, luminance,
+                                 ref_pyr, cur_pyr, ref_uv, rot, skip,
+                                 cur_uv=cur_uv)
+    lssd_track_pyramid_cuda.launches += launched
+    return out
+
+
+def lssd_phase_clocks(opts: KltOptions, luminance: bool, ref_pyr, cur_pyr,
+                      ref_uv, cur_uv, rot, skip) -> dict:
+    """Where the SE(2) kernel's time goes on these CUDA inputs: one
+    whole-pyramid launch of its build with phase clocks, then the shares of
+    ``LSSD_PHASES`` (:func:`cuda_klt.read_phase_clocks`). A diagnostic: the
+    launch is in no wrapper's count."""
+    lib = bind_phase_clocks("ftk_klt_lssd_phases", "klt_lssd.cu",
+                            "ftk_klt_lssd_pyramid", _LSSD_ARGTYPES)
+    read_phase_clocks(lib, LSSD_PHASES)
+    _launch_lssd("lssd_phase_clocks", lib, opts, luminance, ref_pyr, cur_pyr,
+                 ref_uv, rot, skip, cur_uv=cur_uv)
+    torch.cuda.synchronize(ref_uv.device)
+    return read_phase_clocks(lib, LSSD_PHASES)
+
+
+def lssd_occupancy(opts: KltOptions, luminance: bool = False) -> dict:
+    """:func:`cuda_klt.occupancy` of the SE(2) kernel that ``opts`` and
+    ``luminance`` launch."""
+    return occupancy(load_lssd_library(), "ftk_klt_lssd_occupancy", opts,
+                     int(bool(luminance)))
 
 
 def lssd_track_level_cuda(opts: KltOptions, luminance: bool, ref_img,
                           cur_img, ref_uv, rot, t, skip):
-    """FAST-mode SE(2) KLT at one pyramid level in one kernel launch.
+    """FAST-mode SE(2) KLT at one pyramid level in one kernel launch: the
+    one-level case of :func:`lssd_track_pyramid_cuda`'s kernel.
 
     Args:
       luminance: divide both patches by their means.
@@ -228,36 +314,19 @@ def lssd_track_level_cuda(opts: KltOptions, luminance: bool, ref_img,
     )
     where = "lssd_track_level_cuda"
     _fast_only(where, opts)
-    dev = ref_uv.device
-    if dev.type == "cpu":
+    if ref_uv.device.type == "cpu":
         return lssd_track_level_reference(opts, luminance, ref_img, cur_img,
                                           ref_uv, rot, t, skip)
-    check(dev.type == "cuda", where, f"unsupported device {dev}")
-    n = ref_uv.shape[0]
-    check_images(where, dev, (ref_img,), (cur_img,))
-    check_features(where, dev, n, skip, ref_uv=(ref_uv, (2,)),
-                   rot=(rot, (2, 2)), t=(t, (2,)))
-    out_rot = torch.empty((n, 2, 2), dtype=torch.float32, device=dev)
-    out_t = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    out_st = torch.empty((n,), dtype=torch.int8, device=dev)
-    if n == 0:
-        return out_rot, out_t, out_st
-    lib = load_lssd_library()
-    with torch.cuda.device(dev):
-        rc = lib.ftk_klt_lssd_level(
-            ref_img.data_ptr(), cur_img.data_ptr(), ref_img.shape[0],
-            ref_img.shape[1], ref_uv.data_ptr(), rot.data_ptr(),
-            t.data_ptr(), skip.data_ptr(), out_rot.data_ptr(),
-            out_t.data_ptr(), out_st.data_ptr(), n, int(bool(luminance)),
-            opts.patch_row_half_size, opts.patch_col_half_size,
-            opts.max_iterations, opts.max_tolerance_large_step,
-            float(opts.max_converge_step),
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(lib, "ftk_klt_lssd_level", rc)
-    lssd_track_level_cuda.launches += 1
-    return out_rot, out_t, out_st
+    check(ref_uv.device.type == "cuda", where,
+          f"unsupported device {ref_uv.device}")
+    out, launched = _launch_lssd(where, load_lssd_library(), opts, luminance,
+                                 (ref_img,), (cur_img,), ref_uv, rot, skip,
+                                 t=t)
+    lssd_track_level_cuda.launches += launched
+    return out
 
 
 affine_track_pyramid_cuda.launches = 0
 affine_track_level_cuda.launches = 0
+lssd_track_pyramid_cuda.launches = 0
 lssd_track_level_cuda.launches = 0

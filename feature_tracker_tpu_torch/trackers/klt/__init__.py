@@ -12,13 +12,12 @@ Semantics shared with the JAX package:
  - A final position outside the full-resolution image maps to OUTSIDE.
 
 On CUDA tensors the basic tracker runs the whole pyramid through one
-launch of a CUDA kernel in every solver mode (``ops/cuda_klt.py``), the
-affine tracker runs the whole pyramid through one launch of its FAST-mode
-kernel, and the LSSD tracker runs every FAST-mode level through one launch
-of its (``ops/cuda_warp_klt.py``); on CPU tensors each takes its kernel's
-plain PyTorch version. The DIRECT / INVERSE modes of the affine
-and LSSD trackers have no kernel in the JAX package either and are plain
-PyTorch on both devices.
+launch of a CUDA kernel in every solver mode (``ops/cuda_klt.py``), and
+the affine and LSSD trackers run the whole pyramid through one launch of
+their FAST-mode kernels (``ops/cuda_warp_klt.py``); on CPU tensors each
+takes its kernel's plain PyTorch version. The DIRECT / INVERSE modes of the
+affine and LSSD trackers have no kernel in the JAX package either and are
+plain PyTorch on both devices.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from feature_tracker_tpu_torch.ops.cuda_klt import (
 )
 from feature_tracker_tpu_torch.ops.cuda_warp_klt import (
     affine_track_pyramid_cuda,
+    lssd_track_pyramid_cuda,
 )
 from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
 from feature_tracker_tpu_torch.trackers.klt import affine as _affine
@@ -104,19 +104,27 @@ def affine_pyramid(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
 
 
 def lssd_pyramid(opts: KltOptions, luminance: bool, ref_pyr, cur_pyr,
-                  ref_uv, cur_uv, status, predict_rot,
-                  level_fn=_lssd.track_level):
-    """SE(2) level loop: ``t = s_cur - R s_ref`` at the coarsest scale,
-    only ``t`` doubles between levels, and the final position is
-    ``R ref_uv + t`` at full resolution. ``level_fn`` as in
-    :func:`affine_pyramid`."""
+                  ref_uv, cur_uv, status, predict_rot, level_fn=None):
+    """SE(2) tracker over a pyramid: ``t = s_cur - R s_ref`` at the coarsest
+    scale, only ``t`` doubles between levels, and the final position is
+    ``R ref_uv + t`` at full resolution.
+
+    FAST mode goes through ``lssd_track_pyramid_cuda``: one kernel launch
+    for all levels on CUDA tensors, the plain level loop on CPU tensors.
+    DIRECT / INVERSE, and any call that passes ``level_fn``, run the level
+    loop here, as in :func:`affine_pyramid`."""
     n = ref_uv.shape[0]
     skip = _skip_mask(n, status, opts)
+    rot = predict_rot.expand(n, 2, 2).contiguous()
+    if level_fn is None and opts.method == KltMethod.FAST:
+        out, _, st = lssd_track_pyramid_cuda(opts, luminance, ref_pyr,
+                                             cur_pyr, ref_uv, cur_uv, rot,
+                                             skip)
+        return _finish(skip, cur_uv, status, out, st, cur_pyr[0].shape)
+    level_fn = level_fn or _lssd.track_level
     scale = float(1 << (len(ref_pyr) - 1))
     s_ref = ref_uv / scale
-    s_cur = cur_uv / scale
-    rot = predict_rot.expand(n, 2, 2).contiguous()
-    t = s_cur - _rotate_uv(rot, s_ref)
+    t = cur_uv / scale - _lssd.rotate_uv(rot, s_ref)
     st = status
     for lvl in range(len(ref_pyr) - 1, -1, -1):
         rot, t, st = level_fn(opts, luminance, ref_pyr[lvl], cur_pyr[lvl],
@@ -124,15 +132,8 @@ def lssd_pyramid(opts: KltOptions, luminance: bool, ref_pyr, cur_pyr,
         if lvl > 0:
             s_ref = s_ref * 2.0
             t = t * 2.0
-    out = _rotate_uv(rot, ref_uv) + t
+    out = _lssd.rotate_uv(rot, ref_uv) + t
     return _finish(skip, cur_uv, status, out, st, cur_pyr[0].shape)
-
-
-def _rotate_uv(rot, uv):
-    """``R @ uv`` per feature: ``rot [N, 2, 2]``, ``uv [N, 2]``."""
-    return torch.stack([rot[:, 0, 0] * uv[:, 0] + rot[:, 0, 1] * uv[:, 1],
-                        rot[:, 1, 0] * uv[:, 0] + rot[:, 1, 1] * uv[:, 1]],
-                       dim=-1)
 
 
 class _KltBase:

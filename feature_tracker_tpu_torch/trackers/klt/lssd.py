@@ -8,8 +8,10 @@ Warp model: ``pos_cur = R @ pos_ref + t`` with a per-feature 2x2 rotation
 
  - FAST mode: the 3x3 H is rebuilt every step (R changes); the optional
    mean normalisation is gated by ``luminance``. The status is rewritten
-   at every level. :func:`lssd_track_level_reference` is the plain version
-   of the CUDA kernel ``ops.cuda_warp_klt.lssd_track_level_cuda``.
+   at every level. :func:`lssd_track_level_reference` and the level loop
+   over it, :func:`lssd_track_pyramid_reference`, are the plain versions of
+   the CUDA kernel behind ``ops.cuda_warp_klt.lssd_track_level_cuda`` and
+   ``lssd_track_pyramid_cuda``.
  - DIRECT / INVERSE: always mean-normalised; the incoming status is kept.
    The JAX package has no TPU kernel for these modes; here they are plain
    PyTorch on either device.
@@ -146,6 +148,52 @@ def lssd_track_level_reference(opts: KltOptions, luminance: bool, ref_img,
     if with_steps:
         return rot, t, status, steps
     return rot, t, status
+
+
+def rotate_uv(rot, uv):
+    """``R @ uv`` per feature: ``rot [N, 2, 2]``, ``uv [N, 2]``."""
+    return torch.stack([rot[:, 0, 0] * uv[:, 0] + rot[:, 0, 1] * uv[:, 1],
+                        rot[:, 1, 0] * uv[:, 0] + rot[:, 1, 1] * uv[:, 1]],
+                       dim=-1)
+
+
+def lssd_track_pyramid_reference(opts: KltOptions, luminance: bool, ref_pyr,
+                                 cur_pyr, ref_uv, cur_uv, rot, skip,
+                                 with_steps: bool = False):
+    """FAST-mode SE(2) KLT over a whole pyramid, in plain PyTorch: the level
+    loop over :func:`lssd_track_level_reference`. ``t = s_cur - R s_ref``
+    at the coarsest scale, R is carried from level to level, only ``s_ref``
+    and ``t`` double between levels, and the result is ``R ref_uv + t``.
+
+    Args:
+      luminance: divide both patches by their means.
+      ref_pyr, cur_pyr: sequences of ``[H_l, W_l]`` float32 levels, finest
+        first.
+      ref_uv, cur_uv: ``[N, 2]`` float32 full-resolution positions.
+      rot: ``[N, 2, 2]`` float32, the rotation at the coarsest level.
+      skip: ``[N]`` bool; skipped lanes keep ``rot`` and ``t`` and return
+        NOT_TRACKED.
+      with_steps: also return ``[N]`` int32, the steps each feature took
+        over all levels.
+
+    Returns ``(uv [N, 2] at full resolution, rot [N, 2, 2], status [N] int8
+    of the finest level)``."""
+    scale = float(1 << (len(ref_pyr) - 1))
+    s_ref = ref_uv / scale
+    t = cur_uv / scale - rotate_uv(rot, s_ref)
+    steps = 0
+    for lvl in range(len(ref_pyr) - 1, -1, -1):
+        rot, t, status, lvl_steps = lssd_track_level_reference(
+            opts, luminance, ref_pyr[lvl], cur_pyr[lvl], s_ref, rot, t, skip,
+            with_steps=True)
+        steps = steps + lvl_steps
+        if lvl > 0:
+            s_ref = s_ref * 2.0
+            t = t * 2.0
+    uv = rotate_uv(rot, ref_uv) + t
+    if with_steps:
+        return uv, rot, status, steps
+    return uv, rot, status
 
 
 def _iterative_level(opts: KltOptions, ref_img, cur_img, ref_uv, rot, t,

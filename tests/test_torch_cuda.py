@@ -34,6 +34,7 @@ from feature_tracker_tpu_torch.trackers.klt.basic import (
 )
 from feature_tracker_tpu_torch.trackers.klt.lssd import (
     lssd_track_level_reference,
+    lssd_track_pyramid_reference,
 )
 
 from chip_smoke import (
@@ -371,6 +372,158 @@ def test_lssd_kernel_matches_plain_version(se2_images, luminance):
                              (kr, pr, 1e-4)])
     assert (ks[skip] == 0).all()
     assert torch.equal(kr[skip], rot[skip]) and torch.equal(kt[skip], t[skip])
+
+
+# 13x13 keeps a lane's samples in registers; 19x13 (247 pixels) takes the
+# shared-memory path.
+@pytest.mark.parametrize("luminance", [False, True])
+@pytest.mark.parametrize("patch", [{}, {"patch_row_half_size": 9}])
+def test_lssd_pyramid_kernel_matches_plain_level_loop(se2_pyramids, patch,
+                                                      luminance):
+    rp, cp = se2_pyramids
+    opts = KltOptions(**patch)
+    uv = torch.from_numpy(np.concatenate([
+        _features(2000, 240, 320, -4, seed=19),
+        [[-30.0, -30.0], [400.0, 20.0], [-4096.0, -4096.0]]]
+    ).astype(np.float32)).cuda()
+    n = uv.shape[0]
+    cur_uv = (uv + torch.tensor([1.0, -0.5], device="cuda")).contiguous()
+    c, s = np.cos(0.01), np.sin(0.01)
+    rot = torch.tensor([[c, -s], [s, c]], dtype=torch.float32,
+                       device="cuda").expand(n, 2, 2).contiguous()
+    skip = torch.zeros(n, dtype=torch.bool, device="cuda")
+    skip[::7] = True
+    call = cuda_warp_klt.lssd_track_pyramid_cuda
+    before = call.launches
+    ku, kr, ks = call(opts, luminance, rp, cp, uv, cur_uv, rot, skip)
+    torch.cuda.synchronize()
+    assert call.launches == before + 1
+    assert ku.shape == (n, 2) and kr.shape == (n, 2, 2)
+    assert ks.dtype == torch.int8
+    pu, pr, ps = lssd_track_pyramid_reference(opts, luminance, rp, cp, uv,
+                                              cur_uv, rot, skip)
+    # Both sides accumulate and solve in float64: at most 0.1 % of the
+    # statuses (at least 1) may flip at a threshold.
+    ksn, psn = ks.cpu().numpy(), ps.cpu().numpy()
+    assert (ksn != psn).sum() <= max(1, n // 1000)
+    both = (ksn == 1) & (psn == 1)
+    assert both.sum() > n // 2
+    assert (ku - pu).abs().cpu().numpy()[both].max() <= 1e-3
+    assert (kr - pr).abs().cpu().numpy()[both].max() <= 1e-4
+    assert (ks[skip] == 0).all() and torch.equal(kr[skip], rot[skip])
+    assert (ksn[-3:] == psn[-3:]).all() and ksn[-3] == 3   # off the image
+    # The level loop through the one-level launches of the same kernel
+    # gives the same bits.
+    s_ref = uv / 4.0
+    t = (cur_uv / 4.0 - torch.stack(
+        [rot[:, 0, 0] * s_ref[:, 0] + rot[:, 0, 1] * s_ref[:, 1],
+         rot[:, 1, 0] * s_ref[:, 0] + rot[:, 1, 1] * s_ref[:, 1]], -1))
+    r = rot
+    for lvl in (2, 1, 0):
+        r, t, st = cuda_warp_klt.lssd_track_level_cuda(
+            opts, luminance, rp[lvl], cp[lvl], s_ref.contiguous(), r,
+            t.contiguous(), skip)
+        if lvl:
+            s_ref, t = s_ref * 2.0, t * 2.0
+    loop_uv = torch.stack([r[:, 0, 0] * uv[:, 0] + r[:, 0, 1] * uv[:, 1],
+                           r[:, 1, 0] * uv[:, 0] + r[:, 1, 1] * uv[:, 1]],
+                          -1) + t
+    assert torch.equal(loop_uv, ku) and torch.equal(r, kr)
+    assert torch.equal(st, ks)
+
+
+@pytest.mark.parametrize("luminance", [False, True])
+def test_lssd_tracker_launches_once_per_track(pair, luminance):
+    rp, cp = pair
+    uv = _features(256, 240, 320, 2, seed=20)
+    pyramid = cuda_warp_klt.lssd_track_pyramid_cuda
+    level = cuda_warp_klt.lssd_track_level_cuda
+    before = (pyramid.launches, level.launches)
+    tracker = LssdKlt(KltOptions(max_track_points=256), luminance)
+    tracker.track(rp, cp, uv)
+    assert (pyramid.launches, level.launches) == (before[0] + 1, before[1])
+    tracker.track_single_level(rp[0], cp[0], uv)
+    assert (pyramid.launches, level.launches) == (before[0] + 2, before[1])
+    # DIRECT / INVERSE have no kernel: plain PyTorch, no launch.
+    LssdKlt(KltOptions(method=KltMethod.INVERSE), luminance).track(rp, cp,
+                                                                   uv)
+    assert (pyramid.launches, level.launches) == (before[0] + 2, before[1])
+
+
+def test_lssd_pyramid_zero_features_and_refused_inputs(pair):
+    rp, cp = pair
+    call = cuda_warp_klt.lssd_track_pyramid_cuda
+    e2 = torch.zeros((0, 2), device="cuda")
+    before = call.launches
+    out = call(KltOptions(), True, rp, cp, e2, e2,
+               torch.zeros((0, 2, 2), device="cuda"),
+               torch.zeros(0, dtype=torch.bool, device="cuda"))
+    assert out[0].shape == (0, 2) and out[1].shape == (0, 2, 2)
+    assert out[2].shape == (0,) and call.launches == before
+    uv = torch.full((4, 2), 50.0, device="cuda")
+    eye = torch.eye(2, device="cuda").expand(4, 2, 2)
+    skip = torch.zeros(4, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        call(KltOptions(), False, rp, cp, uv, uv, eye, skip)  # expanded view
+    eye = eye.contiguous()
+    with pytest.raises(ValueError, match="levels"):
+        call(KltOptions(), False, rp * 3, cp * 3, uv, uv, eye, skip)
+    with pytest.raises(ValueError, match="shape"):
+        call(KltOptions(), False, rp, cp[::-1], uv, uv, eye, skip)
+    with pytest.raises(ValueError, match=r"rot must be \[N, 2, 2\]"):
+        call(KltOptions(), False, rp, cp, uv, uv, uv, skip)
+    with pytest.raises(ValueError, match="device"):
+        call(KltOptions(), False, rp, cp, uv, uv.cpu(), eye, skip)
+    with pytest.raises(ValueError, match="FAST mode only"):
+        call(KltOptions(method=KltMethod.DIRECT), False, rp, cp, uv, uv, eye,
+             skip)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        call(KltOptions(patch_row_half_size=200, patch_col_half_size=200),
+             True, rp, cp, uv, uv, eye, skip)
+    assert call.launches == before
+
+
+@pytest.mark.parametrize("method", ITERATIVE)
+def test_iter_kernel_on_the_border_keeps_incoming_statuses(pair, method):
+    """Features whose patches leave the image on every side, with every
+    incoming status: the rectangle of counting pixels shrinks to nothing
+    for some (state and status kept), and the kernel agrees with the plain
+    version."""
+    rp, cp = pair
+    opts = KltOptions(method=method, max_iterations=8)
+    xs = np.array([-7.0, -6.5, -0.25, 0.0, 5.5, 6.0, 313.0, 318.5, 319.0,
+                   325.0], np.float32)
+    ys = np.array([-7.0, -0.5, 0.0, 6.0, 233.0, 239.0, 246.0], np.float32)
+    uv = torch.from_numpy(np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2)
+                          ).cuda()
+    n = uv.shape[0]
+    status = torch.from_numpy(np.arange(n) % 5).to(torch.int8).cuda()
+    skip = status > 1
+    call = cuda_klt.track_pyramid_iter_cuda
+    before = call.launches
+    ku, ks = call(opts, rp, cp, uv, uv, status, skip)
+    torch.cuda.synchronize()
+    assert call.launches == before + 1
+    pu, ps = track_pyramid_iter_reference(opts, rp, cp, uv, uv, status, skip)
+    ksn, psn = ks.cpu().numpy(), ps.cpu().numpy()
+    assert (ksn != psn).sum() <= 1
+    same = ksn == psn
+    np.testing.assert_allclose(ku.cpu().numpy()[same], pu.cpu().numpy()[same],
+                               atol=1e-3)
+    sk = skip.cpu().numpy()
+    np.testing.assert_array_equal(ksn[sk], status.cpu().numpy()[sk])
+
+
+@pytest.mark.parametrize("kernel", ["inverse", "direct", "lssd",
+                                    "lssd-luminance"])
+def test_redesigned_kernels_hold_16_warps_per_sm(pair, kernel):
+    opts = KltOptions()
+    if kernel.startswith("lssd"):
+        occ = cuda_warp_klt.lssd_occupancy(opts, kernel.endswith("luminance"))
+    else:
+        occ = cuda_klt.iter_occupancy(KltOptions(method=KltMethod(kernel)))
+    assert occ["warps_per_sm"] >= 16, occ
+    assert 0 < occ["registers"] <= 128
 
 
 @pytest.mark.parametrize("kind", ["inverse", "direct", "affine", "lssd",

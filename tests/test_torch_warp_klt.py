@@ -560,3 +560,116 @@ def test_affine_pyramid_wrapper_refuses_iterative_modes(scene):
         cuda_warp_klt.affine_track_pyramid_cuda(
             opts, rp, cp, uv, uv, torch.eye(2).expand(N, 2, 2).contiguous(),
             torch.zeros(N, dtype=torch.bool))
+
+
+# --- the SE(2) tracker's whole-pyramid wrapper ------------------------------
+
+
+@pytest.mark.parametrize("luminance", [False, True])
+@pytest.mark.parametrize("levels", [1, 2, 3, 4])
+def test_lssd_pyramid_reference_is_the_level_loop(levels, luminance):
+    """The plain whole-pyramid version against a level loop written out
+    here: t = s_cur - R s_ref at the coarsest scale, R carried, s_ref and t
+    doubled between levels, R ref_uv + t at the end."""
+    ref, cur = PAIRS["se2"]()
+    rp = build_pyramid(ref, levels, device="cpu")
+    cp = build_pyramid(cur, levels, device="cpu")
+    opts, _ = _opts()
+    uv = torch.from_numpy(_features(N, H, W, 12, seed=38))
+    cur_uv = uv + torch.tensor([0.75, -0.5])
+    c, s = np.float32(np.cos(0.01)), np.float32(np.sin(0.01))
+    rot = torch.tensor([[c, -s], [s, c]]).expand(N, 2, 2).contiguous()
+    skip = torch.zeros(N, dtype=torch.bool)
+    skip[3] = True
+    gu, gr, gs, steps = lssd.lssd_track_pyramid_reference(
+        opts, luminance, rp, cp, uv, cur_uv, rot, skip, with_steps=True)
+    scale = 2.0 ** (levels - 1)
+    s_ref = uv / scale
+    r = rot
+    t = cur_uv / scale - torch.einsum("nij,nj->ni", r, s_ref)
+    for lvl in reversed(range(levels)):
+        r, t, st = lssd.lssd_track_level_reference(
+            opts, luminance, rp[lvl], cp[lvl], s_ref, r, t, skip)
+        if lvl:
+            s_ref, t = s_ref * 2.0, t * 2.0
+    want = torch.stack([r[:, 0, 0] * uv[:, 0] + r[:, 0, 1] * uv[:, 1],
+                        r[:, 1, 0] * uv[:, 0] + r[:, 1, 1] * uv[:, 1]],
+                       -1) + t
+    assert torch.equal(gu, want) and torch.equal(gr, r)
+    assert torch.equal(gs, st)
+    # The skipped lane keeps its rotation, moves by nothing and takes no
+    # step; the others take at least one step at every level.
+    assert torch.equal(gr[3], rot[3]) and int(gs[3]) == 0 and steps[3] == 0
+    np.testing.assert_allclose(gu[3].numpy(), cur_uv[3].numpy(), atol=1e-4)
+    assert (steps[~skip] >= levels).all()
+
+
+@pytest.mark.parametrize("luminance", [False, True])
+def test_lssd_pyramid_wrapper_matches_tracker_and_jax(scene, luminance):
+    """``lssd_track_pyramid_cuda`` on CPU tensors is the plain level loop,
+    which is what ``LssdKlt.track`` runs: bit for bit, with no launch; and
+    the JAX tracker within UV_TOL with equal statuses. With failed and
+    capped (skipped) lanes."""
+    from feature_tracker_tpu_torch.trackers import klt as torch_klt
+
+    tracker, jtracker = _trackers("lssd", KltMethod.FAST, luminance,
+                                  n=N - 3)
+    uv = scene["uv"]
+    status = np.zeros(N, np.int8)
+    status[[2, 9]] = [4, 3]
+    rp, cp = scene["torch"]
+    tu, ts = tracker.track(rp, cp, uv, None, status)
+    _assert_same(jtracker.track(*scene["jax"], jnp.asarray(uv), None,
+                                jnp.asarray(status)), (tu, ts))
+
+    uv_t, st_t = torch.from_numpy(uv), torch.from_numpy(status)
+    skip = torch_klt._skip_mask(N, st_t, tracker.options)
+    assert skip.sum() == 5
+    eye = torch.eye(2).expand(N, 2, 2).contiguous()
+    args = (tracker.options, luminance, rp, cp, uv_t, uv_t, eye, skip)
+    before = cuda_warp_klt.lssd_track_pyramid_cuda.launches
+    wu, wr, ws = cuda_warp_klt.lssd_track_pyramid_cuda(*args)
+    assert cuda_warp_klt.lssd_track_pyramid_cuda.launches == before
+    ru, rr, rs = lssd.lssd_track_pyramid_reference(*args)
+    assert torch.equal(wu, ru) and torch.equal(wr, rr) and torch.equal(ws, rs)
+    fu, fs = torch_klt._finish(skip, uv_t, st_t, wu, ws, rp[0].shape)
+    assert torch.equal(fu, tu) and torch.equal(fs, ts)
+    assert torch.equal(wr[skip], eye[skip]) and (ws[skip] == 0).all()
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_lssd_pyramid_with_a_level_function_runs_the_level_loop(scene,
+                                                                method):
+    """``lssd_pyramid`` with ``level_fn`` (and DIRECT / INVERSE without)
+    runs its Python level loop, one call per level, and in FAST mode gives
+    what the whole-pyramid route gives."""
+    from feature_tracker_tpu_torch.trackers import klt as torch_klt
+
+    opts, _ = _opts(method)
+    rp, cp = scene["torch"]
+    uv = torch.from_numpy(scene["uv"])
+    status = torch.zeros(N, dtype=torch.int8)
+    calls = []
+
+    def level_fn(*args, **kw):
+        calls.append(args[2].shape)
+        return lssd.track_level(*args, **kw)
+
+    eye = torch.eye(2)
+    lu, ls = torch_klt.lssd_pyramid(opts, True, rp, cp, uv, uv, status, eye,
+                                    level_fn=level_fn)
+    assert calls == [tuple(l.shape) for l in reversed(rp)]
+    du, ds = torch_klt.lssd_pyramid(opts, True, rp, cp, uv, uv, status, eye)
+    assert torch.equal(lu, du) and torch.equal(ls, ds)
+
+
+def test_lssd_pyramid_wrapper_refuses_iterative_modes(scene):
+    rp, cp = scene["torch"]
+    uv = torch.from_numpy(scene["uv"])
+    eye = torch.eye(2).expand(N, 2, 2).contiguous()
+    for method in (KltMethod.DIRECT, KltMethod.INVERSE):
+        opts, _ = _opts(method)
+        with pytest.raises(ValueError, match="FAST mode only"):
+            cuda_warp_klt.lssd_track_pyramid_cuda(
+                opts, False, rp, cp, uv, uv, eye,
+                torch.zeros(N, dtype=torch.bool))
