@@ -30,9 +30,12 @@ Phases (any failed check raises, so the exit code is non-zero):
      tracked flow equal to the true shift, track ids kept across frames.
   4. Timings with CUDA events (warm-up first, median of >= 20 samples),
      each kernel's bound from its bytes and the operations of the steps
-     actually taken, occupancy and phase-clock profiles of the redesigned
-     kernels, and torch.profiler windows over five headline kernel calls
-     and ten more front-end frames.
+     actually taken, occupancy and phase-clock profiles of the KLT kernels,
+     each kernel's device time per launch from torch.profiler (the time the
+     kernels line carries: a kernel shorter than its wrapper's enqueue on
+     the host is timed by the host in a run of back-to-back calls), and
+     torch.profiler windows over five headline kernel calls and ten more
+     front-end frames.
   5. RAFT inference. The correlation-lookup kernel against its plain
      version at the serving shape (batch 4, 55x128 queries, 128 channels,
      3 levels, radius 3), on locations that leave the map or are NaN,
@@ -447,6 +450,31 @@ def profile_window(label: str, fn, calls: int) -> None:
               f" {e.count / calls:6.1f} launches/call  {e.key[:70]}")
 
 
+def device_ms(fn, kernel: str, events_ms: float, calls: int = 20) -> float:
+    """Mean device time in ms of one launch of the kernels whose name holds
+    ``kernel``, over ``calls`` calls of ``fn`` under torch.profiler: the
+    kernel's own time, without the host's enqueue time that a timing of
+    back-to-back calls includes when the kernel is shorter than it. Where
+    the profiler reports no device time, ``events_ms`` (the timing by CUDA
+    events) stands in, and a line says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if kernel in e.key
+            and e.self_device_time_total > 0]
+    launches = sum(e.count for e in rows)
+    if launches == 0:
+        print(f"[time] {kernel}: device time not measured (the profiler "
+              "reported none); the CUDA events' time stands in")
+        return events_ms
+    return sum(e.self_device_time_total for e in rows) / launches / 1e3
+
+
 def lookup_inputs(dev, seed, b, h, w, c, levels, spread=None):
     """Feature maps, pooled pyramid and lookup locations on ``dev`` from a
     numpy seed. ``spread=None``: locations uniform from -8 to max(h, w) + 8
@@ -837,9 +865,12 @@ def raft_phases(dev, card):
                       repeats=10, warmup=2)
     del volume
     library_ms = sample_ms + volume_ms / RAFT_ITERS
+    dev_ms = device_ms(lambda: lookup_correlation_cuda(f0, pyr, locs, radius),
+                       "raft_lookup_kernel", kernel_ms)
     print(f"[time] raft lookup kernel {shape}: {kernel_ms:.4f} ms per launch "
-          f"back to back, {call_ms:.4f} ms per lone call; bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} FLOP)")
+          f"back to back, {call_ms:.4f} ms per lone call, {dev_ms:.4f} ms "
+          f"device time per launch (profiler); bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({nbytes} B, {flops} FLOP)")
     blocks = RAFT_B * -(-fh // TILE) * -(-fw // TILE) * levels
     for label, case in (("grid + N(0, 4 px)", serving),
                         ("the driven call's last iteration", real)):
@@ -911,7 +942,7 @@ def raft_phases(dev, card):
         "replaces": "feature_tracker_tpu/ops/pallas_raft_lookup.py:158",
         "launches": launches,
         "max_abs_err": max(errs),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
     }
 
@@ -971,7 +1002,9 @@ def main() -> int:
                  cuda_raft_lookup.LOOKUP_LIBRARY]
     # And the redesigned kernels once more with phase clocks compiled in,
     # for the profiles printed with their timings.
-    profiled = [_build.phase_clock_library("ftk_klt_iter_phases",
+    profiled = [_build.phase_clock_library("ftk_klt_fast_phases",
+                                           "klt_fast.cu"),
+                _build.phase_clock_library("ftk_klt_iter_phases",
                                            "klt_iter.cu"),
                 _build.phase_clock_library("ftk_klt_affine_phases",
                                            "klt_affine.cu"),
@@ -1148,13 +1181,31 @@ def main() -> int:
     nbytes, flops = klt_work(opts, pyr_shapes, N, N, int(steps.sum()))
     bound_ms, bound_by = bound(nbytes, flops)
     print(f"[time] klt kernel 752x480 L=4 N=10240: {kernel_ms:.4f} ms "
-          f"per launch back to back ({N / kernel_ms * 1e3:.4g} features/s), "
-          f"{call_ms:.4f} ms per lone call; bound {bound_ms:.4f} ms by "
+          f"per launch back to back, {call_ms:.4f} ms per lone call; bound "
+          f"{bound_ms:.4f} ms by "
           f"{bound_by} ({nbytes} B, {flops} FLOP, {int(steps.sum())} GN "
           "steps)")
     print(f"[time] klt kernel at the front end's shape (N={cfg.capacity}): "
           f"{fe_kernel_ms:.4f} ms per launch back to back, "
           f"{fe_call_ms:.4f} ms per lone call")
+    dev_ms = device_ms(lambda: cuda_klt.track_pyramid_fast_cuda(
+        opts, rp, cp, uv, uv, no_skip), "klt_fast_pyramid_kernel", kernel_ms)
+    fe_dev_ms = device_ms(lambda: cuda_klt.track_pyramid_fast_cuda(
+        cfg.klt, rp, cp, fe_uv, fe_uv, fe_skip), "klt_fast_pyramid_kernel",
+        fe_kernel_ms)
+    print(f"[time] klt kernel device time per launch (profiler): "
+          f"{dev_ms:.4f} ms at N={N}, {fe_dev_ms:.4f} ms at "
+          f"N={cfg.capacity}; {N / dev_ms * 1e3:.4g} features/s at N={N}")
+    occ = cuda_klt.fast_occupancy(opts)
+    print(f"[time] klt kernel: {occ['registers']} registers, "
+          f"{occ['warps_per_block']} warps a block, {occ['blocks_per_sm']} "
+          f"blocks = {occ['warps_per_sm']} warps resident per SM")
+    print_phases("klt fast kernel, headline pair",
+                 cuda_klt.fast_phase_clocks(opts, rp, cp, uv, uv, no_skip), N,
+                 "feature")
+    print_phases(f"klt fast kernel, front end's shape N={cfg.capacity}",
+                 cuda_klt.fast_phase_clocks(cfg.klt, rp, cp, fe_uv, fe_uv,
+                                            fe_skip), cfg.capacity, "feature")
     print(f"[time] klt plain PyTorch version on the card: {plain_ms:.4f} ms")
     print(f"[time] build_pyramid 752x480 L=4: {pyr_ms:.4f} ms")
     print(f"[time] detect_good_features 752x480 max_num=300: {det_ms:.4f} ms")
@@ -1167,7 +1218,7 @@ def main() -> int:
         "replaces": "feature_tracker_tpu/ops/pallas_klt.py:1016",
         "launches": launches,
         "max_abs_err": max(errs),
-        "ms": kernel_ms,
+        "ms": dev_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -1182,6 +1233,9 @@ def main() -> int:
             mopts, rp, cp, uv, uv, fresh, no_skip), batch=10)
         m_call = cuda_ms(lambda: cuda_klt.track_pyramid_iter_cuda(
             mopts, rp, cp, uv, uv, fresh, no_skip))
+        m_dev = device_ms(lambda: cuda_klt.track_pyramid_iter_cuda(
+            mopts, rp, cp, uv, uv, fresh, no_skip), "klt_iter_pyramid_kernel",
+            m_ms)
         m_plain = cuda_ms(lambda: track_pyramid_iter_reference(
             mopts, rp, cp, uv, uv, fresh, no_skip), repeats=20, warmup=2)
         m_steps = int(iter_steps[method].sum())
@@ -1190,7 +1244,8 @@ def main() -> int:
         m_bound, m_by = bound(m_bytes, m_flops)
         print(f"[time] klt iter kernel {method.value} 752x480 L=4 N=10240: "
               f"{m_ms:.4f} ms per launch back to back, {m_call:.4f} ms per "
-              f"lone call; plain {m_plain:.4f} ms; bound {m_bound:.4f} ms by "
+              f"lone call, {m_dev:.4f} ms device time per launch "
+              f"(profiler); plain {m_plain:.4f} ms; bound {m_bound:.4f} ms by "
               f"{m_by} ({m_bytes} B, {m_flops} FLOP, {m_steps} GN steps)")
         occ = cuda_klt.iter_occupancy(mopts)
         print(f"[time] klt iter kernel: {occ['registers']} registers, "
@@ -1208,7 +1263,7 @@ def main() -> int:
                 "replaces": "feature_tracker_tpu/ops/pallas_klt.py:1327",
                 "launches": path_launches["basic INVERSE"],
                 "max_abs_err": max(iter_errs),
-                "ms": m_ms, "plain_ms": m_plain, "bound_ms": m_bound,
+                "ms": m_dev, "plain_ms": m_plain, "bound_ms": m_bound,
                 "bound_by": m_by, "library_ms": None,
             })
 
@@ -1258,12 +1313,15 @@ def main() -> int:
                   "steps)")
         track_ms = cuda_ms(lambda: tracker.track(rp, cp, uv))
         k_ms = cuda_ms(lambda: pyramid(*p_args), batch=10)
+        k_dev = device_ms(lambda: pyramid(*p_args),
+                          f"klt_{kind}_pyramid_kernel", k_ms)
         k_plain = cuda_ms(lambda: plain_pyramid(*p_args), repeats=10,
                           warmup=2)
         k_bound, k_by = bound(sum(r[2] for r in rows),
                               sum(r[3] for r in rows))
         print(f"[time] {tname} whole-pyramid kernel 752x480 L=4 N=10240: "
-              f"{k_ms:.4f} ms per launch back to back; plain level loop "
+              f"{k_ms:.4f} ms per launch back to back, {k_dev:.4f} ms "
+              f"device time per launch (profiler); plain level loop "
               f"{k_plain:.4f} ms; bound {k_bound:.4f} ms by {k_by} (sum "
               f"over the levels, {sum(r[4] for r in rows)} GN steps); "
               f"{occ['registers']} registers, {occ['warps_per_block']} "
@@ -1285,7 +1343,7 @@ def main() -> int:
                             + ("728" if kind == "affine" else "761"),
                 "launches": path_launches[kind],
                 "max_abs_err": max(warp_errs[kind]),
-                "ms": k_ms, "plain_ms": k_plain, "bound_ms": k_bound,
+                "ms": k_dev, "plain_ms": k_plain, "bound_ms": k_bound,
                 "bound_by": k_by, "library_ms": None,
             })
     clock_line("after the KLT timings")

@@ -70,19 +70,7 @@ enum : int {
   kNumericError = 4,
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
@@ -134,13 +122,6 @@ __device__ __forceinline__ bool tap_valid(int r, int c, int h, int w) {
   return r >= 0 && r <= h - 2 && c >= 0 && c <= w - 2;
 }
 
-__device__ __forceinline__ float sample(const float* img, int w, int r,
-                                        int c, float wtl, float wtr,
-                                        float wbl, float wbr) {
-  const float* q = img + (size_t)r * w + c;
-  return wtl * q[0] + wtr * q[1] + wbl * q[w] + wbr * q[w + 1];
-}
-
 // The four constant bilinear weights of a position and its integer anchor.
 struct Anchor {
   int r, c;  // floor(y), floor(x), clamped
@@ -170,43 +151,6 @@ __device__ __forceinline__ bool position_valid(int h, int w, float x,
          x0 <= (float)(w - 2);
 }
 
-// Bounds-checked bilinear sample at a free position (own weights per call).
-__device__ __forceinline__ bool sample_at(const float* img, int h, int w,
-                                          float x, float y, float* out) {
-  if (!position_valid(h, w, x, y)) {
-    *out = 0.0f;
-    return false;
-  }
-  const float y0 = floorf(y), x0 = floorf(x);
-  const float fr = y - y0, fc = x - x0;
-  const float* q = img + (size_t)(int)y0 * w + (int)x0;
-  *out = (1.0f - fr) * (1.0f - fc) * q[0] + (1.0f - fr) * fc * q[1] +
-         fr * (1.0f - fc) * q[w] + fr * fc * q[w + 1];
-  return true;
-}
-
-// Extended (pr+2)x(pc+2) patch around `a` with constant weights, written to
-// ex[] (0 where the tap is invalid). Returns this lane's count of valid
-// taps; the caller sums it over the warp and syncs before reading ex[].
-__device__ __forceinline__ int load_extended_patch(const float* img, int h,
-                                                   int w, const Anchor& a,
-                                                   int epr, int epc,
-                                                   int lane, float* ex) {
-  const int min_r = a.r - epr / 2, min_c = a.c - epc / 2;
-  int n_valid = 0;
-  for (int p = lane; p < epr * epc; p += 32) {
-    const int i = p / epc, j = p - i * epc;
-    const int r = min_r + i, c = min_c + j;
-    float v = 0.0f;
-    if (tap_valid(r, c, h, w)) {
-      v = sample(img, w, r, c, a.wtl, a.wtr, a.wbl, a.wbr);
-      ++n_valid;
-    }
-    ex[p] = v;
-  }
-  return n_valid;
-}
-
 // Row and column of the entries p = lane, lane + 32, lane + 64, ... of a
 // row-major block with `cols` columns, stepped without a division: an
 // integer division by a value known only at run time is some twenty
@@ -228,10 +172,13 @@ struct PatchWalk {
   }
 };
 
-// The same patch with the loads of U pixels sent out together: a tap outside
-// the image reads pixel (0, 0) and is discarded, so no load waits behind a
-// branch (with the branch each trip of the loop above waits out its four
-// loads' latency in turn). Same values, same count.
+// Extended (pr+2)x(pc+2) patch around `a` with constant weights, written to
+// ex[] (0 where the tap is invalid), with the loads of U taps sent out
+// together: a tap outside the image reads pixel (0, 0) and is discarded,
+// so no load waits behind a branch (with a branch around each tap's loads,
+// a lane waits out their latency one tap after the other). Returns this
+// lane's count of valid taps; the caller syncs the warp before reading
+// ex[].
 template <int U>
 __device__ __forceinline__ int load_extended_patch_batched(
     const float* img, int h, int w, const Anchor& a, int epr, int epc,
@@ -266,9 +213,9 @@ __device__ __forceinline__ int load_extended_patch_batched(
   return n_valid;
 }
 
-// The four taps of a free sampling position, loaded without a branch: an
-// invalid position (position_valid) reads pixel (0, 0). value() is
-// sample_at's expression.
+// The four taps of a free sampling position (own weights per call), loaded
+// without a branch: an invalid position (position_valid) reads pixel
+// (0, 0), and value() is then not used.
 struct Taps {
   float t[4];
   float fr, fc;

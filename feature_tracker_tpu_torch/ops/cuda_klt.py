@@ -46,11 +46,19 @@ def bind(library, function: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
+_FAST_ARGTYPES = [_VP] * 4 + [_INT] + [_VP] * 5 + [_INT] * 5 + [_FLOAT, _VP]
+# The phases csrc/klt_fast.cu marks, in its order.
+FAST_PHASES = ("level setup", "step pixels", "step reduction",
+               "step solve and update")
+
+
 @functools.lru_cache(maxsize=None)
 def load_klt_library() -> ctypes.CDLL:
     """Build (at first use) and load the FAST kernel's library."""
-    return bind(FAST_LIBRARY, "ftk_klt_fast_pyramid",
-                [_VP] * 4 + [_INT] + [_VP] * 5 + [_INT] * 5 + [_FLOAT, _VP])
+    lib = bind(FAST_LIBRARY, "ftk_klt_fast_pyramid", _FAST_ARGTYPES)
+    lib.ftk_klt_fast_occupancy.argtypes = [_INT, _INT, _VP, _VP, _VP]
+    lib.ftk_klt_fast_occupancy.restype = _INT
+    return lib
 
 
 _ITER_ARGTYPES = [_VP] * 4 + [_INT] + [_VP] * 6 + [_INT] * 5 + [_FLOAT, _VP]
@@ -99,6 +107,16 @@ def check_features(where: str, dev, n: int, skip, **tensors) -> None:
     for t in [skip] + [t for t, _ in tensors.values()]:
         check(t.device == dev and t.is_contiguous(), where,
               "features and skip must be contiguous on the images' device")
+
+
+def need_card(where: str, dev=None) -> None:
+    """Raise before anything is built when there is no CUDA card (or ``dev``
+    is not one): the diagnostics below read a kernel on the card and have
+    no plain version."""
+    if not torch.cuda.is_available() or (dev is not None
+                                         and dev.type != "cuda"):
+        raise RuntimeError(f"{where} needs a CUDA device and CUDA tensors: "
+                           "it measures a kernel on the card")
 
 
 def raise_on_error(lib, function: str, rc: int) -> None:
@@ -174,10 +192,11 @@ def occupancy(lib, function: str, opts: KltOptions, *extra: int) -> dict:
 
 
 def _launch_pyramid(where: str, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
-                    cur_uv, status, skip, iter_lib=None):
+                    cur_uv, status, skip, lib=None):
     """Check the inputs and launch the FAST kernel (``status`` None) or the
-    DIRECT / INVERSE kernel (of ``iter_lib`` if given). Returns the outputs
-    and whether a kernel was launched (not for zero features)."""
+    DIRECT / INVERSE kernel, of ``lib`` if given (a build with phase
+    clocks). Returns the outputs and whether a kernel was launched (not for
+    zero features)."""
     dev = ref_uv.device
     levels = check_pyramids(where, dev, ref_pyr, cur_pyr)
     n = ref_uv.shape[0]
@@ -196,7 +215,7 @@ def _launch_pyramid(where: str, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if status is None:
-            lib, function = load_klt_library(), "ftk_klt_fast_pyramid"
+            lib, function = lib or load_klt_library(), "ftk_klt_fast_pyramid"
             rc = lib.ftk_klt_fast_pyramid(
                 *pyramids, levels, ref_uv.data_ptr(), cur_uv.data_ptr(),
                 skip.data_ptr(), out_uv.data_ptr(), out_st.data_ptr(), n,
@@ -204,7 +223,7 @@ def _launch_pyramid(where: str, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
                 opts.max_iterations, opts.max_tolerance_large_step,
                 float(opts.max_converge_step), stream)
         else:
-            lib = iter_lib or load_klt_iter_library()
+            lib = lib or load_klt_iter_library()
             function = "ftk_klt_iter_pyramid"
             rc = lib.ftk_klt_iter_pyramid(
                 *pyramids, levels, ref_uv.data_ptr(), cur_uv.data_ptr(),
@@ -278,6 +297,29 @@ def track_pyramid_iter_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
     return out
 
 
+def fast_phase_clocks(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
+                      skip) -> dict:
+    """Where the FAST kernel's time goes on these CUDA inputs: one launch of
+    its build with phase clocks, then the shares of ``FAST_PHASES``
+    (:func:`read_phase_clocks`). A diagnostic: the launch is in no
+    wrapper's count."""
+    check(opts.method == KltMethod.FAST, "fast_phase_clocks", "FAST mode only")
+    need_card("fast_phase_clocks", ref_uv.device)
+    lib = bind_phase_clocks("ftk_klt_fast_phases", "klt_fast.cu",
+                            "ftk_klt_fast_pyramid", _FAST_ARGTYPES)
+    read_phase_clocks(lib, FAST_PHASES)
+    _launch_pyramid("fast_phase_clocks", opts, ref_pyr, cur_pyr, ref_uv,
+                    cur_uv, None, skip, lib=lib)
+    torch.cuda.synchronize(ref_uv.device)
+    return read_phase_clocks(lib, FAST_PHASES)
+
+
+def fast_occupancy(opts: KltOptions) -> dict:
+    """:func:`occupancy` of the FAST kernel at ``opts``' patch size."""
+    need_card("fast_occupancy")
+    return occupancy(load_klt_library(), "ftk_klt_fast_occupancy", opts)
+
+
 def iter_phase_clocks(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
                       status, skip) -> dict:
     """Where the DIRECT / INVERSE kernel's time goes on these CUDA inputs
@@ -290,7 +332,7 @@ def iter_phase_clocks(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
                             "ftk_klt_iter_pyramid", _ITER_ARGTYPES)
     read_phase_clocks(lib, ITER_PHASES)
     _launch_pyramid("iter_phase_clocks", opts, ref_pyr, cur_pyr, ref_uv,
-                    cur_uv, status, skip, iter_lib=lib)
+                    cur_uv, status, skip, lib=lib)
     torch.cuda.synchronize(ref_uv.device)
     return read_phase_clocks(lib, ITER_PHASES)
 

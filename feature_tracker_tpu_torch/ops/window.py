@@ -70,3 +70,40 @@ def slice_window(padded: torch.Tensor, pad: int, anchor_r, anchor_c,
     rows = (r[..., None] + offs)[..., :, None]
     cols = (c[..., None] + offs)[..., None, :]
     return padded[rows, cols]
+
+
+def bilinear_taps(block: torch.Tensor, rows: int, cols: int):
+    """The 4 bilinear tap views ``(tl, tr, bl, br)`` of ``[..., win, win]``
+    blocks with ``win >= rows + 1`` and ``win >= cols + 1``; each view is
+    ``[..., rows, cols]``."""
+    tl = block[..., :rows, :cols]
+    tr = block[..., :rows, 1:cols + 1]
+    bl = block[..., 1:rows + 1, :cols]
+    br = block[..., 1:rows + 1, 1:cols + 1]
+    return tl, tr, bl, br
+
+
+def extract_patch_window(padded: torch.Tensor, pad: int, img_shape, uv,
+                         rows: int, cols: int):
+    """Constant-weight patch of each position from one window slice.
+
+    ``padded``: the image zero-padded by ``pad`` (:func:`pad_image`);
+    ``uv``: ``[..., 2]`` (x, y). Returns ``(patch [..., rows, cols],
+    valid [..., rows, cols])``, the patch 0 where its tap is invalid.
+
+    The window is square, ``rows + 1`` on a side, as in the JAX package,
+    whose tap views come out too narrow when ``cols > rows`` and whose sum
+    then fails on their shapes; such a patch is refused here."""
+    if cols > rows:
+        raise ValueError(f"extract_patch_window: cols ({cols}) > rows "
+                         f"({rows}) does not fit its square window of "
+                         f"rows + 1")
+    r0, c0, weights = const_weights(uv)
+    w_tl, w_tr, w_bl, w_br = (w[..., None, None] for w in weights)
+    min_r = r0 - rows // 2
+    min_c = c0 - cols // 2
+    block = slice_window(padded, pad, min_r, min_c, rows + 1)
+    tl, tr, bl, br = bilinear_taps(block, rows, cols)
+    patch = w_tl * tl + w_tr * tr + w_bl * bl + w_br * br
+    valid = tap_validity(img_shape, min_r, min_c, rows, cols)
+    return torch.where(valid, patch, 0.0), valid

@@ -39,3 +39,22 @@ def flow_metrics(pred_flow, gt_flow, valid=None):
         "px5": frac(epe > 5.0),
         "fl": frac((epe > 3.0) & (epe > 0.05 * mag)),
     }
+
+
+def evaluate_raft(model, variables, ref, cur, gt_flow, valid=None):
+    """Run RAFT and report :func:`flow_metrics` of the FINAL prediction (the
+    RAFT protocol evaluates the last refinement iteration).
+
+    ``model`` is a ``models.raft.Raft``; ``variables`` a ``state_dict`` that
+    is loaded into it first (the model keeps it), or None for the model's
+    own weights. ``gt_flow`` ``[..., H, W, 2]`` and ``valid`` ``[..., H,
+    W]`` may be numpy arrays or tensors; they go to the prediction's
+    device."""
+    if variables is not None:
+        model.load_state_dict(variables)
+    with torch.no_grad():
+        flow = model(ref, cur)[-1]
+    gt_flow = torch.as_tensor(gt_flow, dtype=torch.float32, device=flow.device)
+    if valid is not None:
+        valid = torch.as_tensor(valid, dtype=torch.bool, device=flow.device)
+    return flow_metrics(flow, gt_flow, valid)

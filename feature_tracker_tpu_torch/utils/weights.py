@@ -1,18 +1,23 @@
-"""Read the repository's flat-pytree weight files (``weights/*.npz``)
-without JAX — the counterpart of ``feature_tracker_tpu/utils/weights.py``.
+"""Read and write the repository's flat-pytree weight files
+(``weights/*.npz``) without JAX — the counterpart of
+``feature_tracker_tpu/utils/weights.py``.
 
-A file holds the leaves ``a0 .. a{n-1}`` in flatten order and, under
+A file holds the leaves ``a0 .. a{n-1}`` in JAX's flatten order and, under
 ``treedef``, the tree itself as text (``repr`` of the ``PyTreeDef``:
 nested dict literals with ``*`` for every leaf), so the i-th ``*`` of the
-text is ``a{i}``.
+text is ``a{i}``. JAX's flatten order takes a dict's entries by sorted key,
+an ``OrderedDict``'s (such as a ``state_dict``) in their own order, lists
+and tuples in order; ``None`` holds no leaf, and anything else is a leaf.
 """
 
 from __future__ import annotations
 
 import ast
+import collections
 import os
 
 import numpy as np
+import torch
 
 from feature_tracker_tpu_torch.convert import (
     raft_leaves_from_jax,
@@ -29,6 +34,118 @@ def weights_path(name: str) -> str:
 
 def has_weights(name: str) -> bool:
     return os.path.exists(weights_path(name))
+
+
+def _children(node):
+    """``(kind, keys, children)`` of a container of the tree, in JAX's
+    flatten order, or None for a leaf."""
+    if isinstance(node, collections.OrderedDict):
+        return "ordered", list(node), list(node.values())
+    if isinstance(node, dict):
+        keys = sorted(node)
+        return "dict", keys, [node[k] for k in keys]
+    if isinstance(node, (list, tuple)):
+        return type(node).__name__, list(range(len(node))), list(node)
+    if node is None:
+        return "none", [], []
+    return None
+
+
+def _flatten(node, trail=""):
+    """``(leaves, key paths, treedef text)`` of a tree, in JAX's flatten
+    order; key paths as ``jax.tree_util.keystr`` writes them."""
+    split = _children(node)
+    if split is None:
+        return [node], [trail], "*"
+    kind, keys, children = split
+    leaves, paths, texts = [], [], []
+    for key, child in zip(keys, children):
+        sub = _flatten(child, f"{trail}[{key!r}]")
+        leaves += sub[0]
+        paths += sub[1]
+        texts.append(sub[2])
+    if kind == "ordered":
+        text = (f"CustomNode(OrderedDict[{tuple(keys)!r}], "
+                f"[{', '.join(texts)}])")
+    elif kind == "dict":
+        text = "{" + ", ".join(f"{k!r}: {t}" for k, t in zip(keys, texts)) \
+            + "}"
+    elif kind == "list":
+        text = f"[{', '.join(texts)}]"
+    elif kind == "tuple":
+        text = f"({', '.join(texts)}{',' if len(texts) == 1 else ''})"
+    else:
+        text = "None"
+    return leaves, paths, text
+
+
+def _as_array(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_pytree(path: str, tree) -> None:
+    """Write ``tree`` (nested dicts, lists and tuples, or a ``state_dict``,
+    of tensors, numpy arrays or scalars) as JAX's ``save_pytree`` does: a
+    compressed npz of the leaves ``a{i}`` in JAX's flatten order and the
+    tree's text under ``treedef``."""
+    leaves, _, text = _flatten(tree)
+    np.savez_compressed(path, treedef=np.frombuffer(
+        f"PyTreeDef({text})".encode(), dtype=np.uint8),
+        **{f"a{i}": _as_array(x) for i, x in enumerate(leaves)})
+
+
+def _rebuild(node, leaves):
+    """``node``'s structure with its leaves taken from the iterator
+    ``leaves`` in flatten order."""
+    split = _children(node)
+    if split is None:
+        return next(leaves)
+    kind, keys, _ = split
+    if kind in ("ordered", "dict"):
+        built = {k: _rebuild(node[k], leaves) for k in keys}
+        return type(node)((k, built[k]) for k in node)
+    if kind in ("list", "tuple"):
+        return type(node)(_rebuild(child, leaves) for child in node)
+    return None
+
+
+def load_pytree(path: str, like):
+    """Load a flattened pytree using ``like``'s structure (nested dicts,
+    lists and tuples, or a ``state_dict``); its leaves become tensors, on
+    the device of ``like``'s leaf where that is a tensor.
+
+    Every loaded leaf is validated against the corresponding leaf of
+    ``like`` (shape and dtype), so an architecture-mismatched or stale
+    weights file fails here with a ValueError naming the leaf, as in the
+    JAX package."""
+    ref_leaves, paths, _ = _flatten(like)
+    loaded = []
+    with np.load(path) as data:
+        for i, (ref_leaf, where) in enumerate(zip(ref_leaves, paths)):
+            key = f"a{i}"
+            if key not in data:
+                raise ValueError(
+                    f"{path}: missing leaf {where} (expected "
+                    f"{len(ref_leaves)} leaves, file has fewer)")
+            arr = data[key]
+            if isinstance(ref_leaf, torch.Tensor):
+                ref_shape = tuple(ref_leaf.shape)
+                ref_dtype = torch.empty(0, dtype=ref_leaf.dtype).numpy().dtype
+            else:
+                ref_shape = tuple(np.shape(ref_leaf))
+                ref_dtype = np.asarray(ref_leaf).dtype
+            if tuple(arr.shape) != ref_shape or arr.dtype != ref_dtype:
+                raise ValueError(
+                    f"{path}: leaf {where} has shape {tuple(arr.shape)} "
+                    f"dtype {arr.dtype}, model expects {ref_shape} "
+                    f"{ref_dtype}")
+            tensor = torch.from_numpy(arr)
+            if isinstance(ref_leaf, torch.Tensor):
+                tensor = tensor.to(ref_leaf.device)
+            loaded.append(tensor)
+    return _rebuild(like, iter(loaded))
 
 
 def load_npz_tree(path: str):

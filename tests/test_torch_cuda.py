@@ -63,7 +63,10 @@ def _features(n, h, w, margin, seed):
                     -1).astype(np.float32)
 
 
+# 13x13 and 13x5 keep a lane's pixels in registers; 19x13 (247 pixels) and
+# 31x13 take the shared-memory path.
 @pytest.mark.parametrize("opts", [KltOptions(),
+                                  KltOptions(patch_row_half_size=9),
                                   KltOptions(patch_row_half_size=15),
                                   KltOptions(patch_col_half_size=2,
                                              max_iterations=4)])
@@ -91,6 +94,53 @@ def test_kernel_matches_plain_version(pair, opts):
     sk = skip.cpu().numpy()
     np.testing.assert_array_equal(ks[sk], 0)
     np.testing.assert_array_equal(ku[sk], uv.cpu().numpy()[sk])
+
+
+@pytest.mark.parametrize("opts", [KltOptions(max_iterations=8),
+                                  KltOptions(patch_row_half_size=9,
+                                             max_iterations=8)])
+def test_kernel_on_the_border_matches_plain_version(pair, opts):
+    """Features whose patches leave the image on every side, some skipped:
+    the rectangles of valid taps shrink to nothing for some (OUTSIDE, or
+    state and status kept), and the statuses are the plain version's."""
+    rp, cp = pair
+    xs = np.array([-9.0, -7.0, -6.5, -0.25, 0.0, 5.5, 6.0, 313.0, 318.5,
+                   319.0, 325.0, 327.5], np.float32)
+    ys = np.array([-9.0, -7.0, -0.5, 0.0, 6.0, 233.0, 239.0, 246.0, 248.5],
+                  np.float32)
+    uv = torch.from_numpy(np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2)
+                          ).cuda()
+    n = uv.shape[0]
+    skip = torch.from_numpy(np.arange(n) % 4 == 1).cuda()
+    call = cuda_klt.track_pyramid_fast_cuda
+    before = call.launches
+    ku, ks = call(opts, rp, cp, uv, uv, skip)
+    torch.cuda.synchronize()
+    assert call.launches == before + 1
+    pu, ps = track_pyramid_fast_reference(opts, rp, cp, uv, uv, skip)
+    ksn, psn = ks.cpu().numpy(), ps.cpu().numpy()
+    np.testing.assert_array_equal(ksn, psn)
+    assert {1, 3} <= set(psn.tolist())     # tracked ones and outside ones
+    np.testing.assert_allclose(ku.cpu().numpy(), pu.cpu().numpy(),
+                               atol=1e-3)
+    sk = skip.cpu().numpy()
+    np.testing.assert_array_equal(ksn[sk], 0)
+    np.testing.assert_array_equal(ku.cpu().numpy()[sk], uv.cpu().numpy()[sk])
+
+
+def test_fast_phase_clocks_share_the_kernel_time(pair):
+    rp, cp = pair
+    uv = torch.from_numpy(_features(512, 240, 320, 10, seed=12)).cuda()
+    skip = torch.zeros(512, dtype=torch.bool, device="cuda")
+    before = cuda_klt.track_pyramid_fast_cuda.launches
+    clocks = cuda_klt.fast_phase_clocks(KltOptions(), rp, cp, uv, uv, skip)
+    assert cuda_klt.track_pyramid_fast_cuda.launches == before
+    assert tuple(clocks["share"]) == cuda_klt.FAST_PHASES
+    assert clocks["clocks"] > 0
+    assert all(v >= 0 for v in clocks["share"].values())
+    assert abs(sum(clocks["share"].values()) - 1.0) <= 1e-9
+    assert clocks["share"]["level setup"] > 0
+    assert clocks["share"]["step pixels"] > 0
 
 
 def test_basic_klt_on_cuda_matches_cpu(pair):
@@ -514,11 +564,13 @@ def test_iter_kernel_on_the_border_keeps_incoming_statuses(pair, method):
     np.testing.assert_array_equal(ksn[sk], status.cpu().numpy()[sk])
 
 
-@pytest.mark.parametrize("kernel", ["inverse", "direct", "lssd",
+@pytest.mark.parametrize("kernel", ["fast", "inverse", "direct", "lssd",
                                     "lssd-luminance"])
 def test_redesigned_kernels_hold_16_warps_per_sm(pair, kernel):
     opts = KltOptions()
-    if kernel.startswith("lssd"):
+    if kernel == "fast":
+        occ = cuda_klt.fast_occupancy(opts)
+    elif kernel.startswith("lssd"):
         occ = cuda_warp_klt.lssd_occupancy(opts, kernel.endswith("luminance"))
     else:
         occ = cuda_klt.iter_occupancy(KltOptions(method=KltMethod(kernel)))

@@ -102,6 +102,59 @@ def test_window_ops_match_jax():
         np.testing.assert_array_equal(np.asarray(jv), valid[k].numpy())
 
 
+@pytest.mark.parametrize("rows,cols", [(13, 13), (15, 7)])
+def test_extract_patch_window_matches_jax(rows, cols):
+    """Batched over features against jax.vmap of the per-feature function:
+    features inside, on every border and far off the image; bit-equal."""
+    import jax
+
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (40, 56)).astype(np.float32)
+    pad = 20
+    uv = np.concatenate([rng.uniform(8, 30, (8, 2)),
+                         [[0.0, 0.0], [-0.5, 20.0], [55.0, 20.3],
+                          [54.7, 38.9], [20.2, -3.5], [30.5, 39.2],
+                          [-400.0, 20.0], [30.0, 900.0]]]).astype(np.float32)
+    jpad = jax_window.pad_image(jnp.asarray(img), pad)
+    want_p, want_ok = jax.vmap(
+        lambda p: jax_window.extract_patch_window(jpad, pad, img.shape, p,
+                                                  rows, cols))(
+        jnp.asarray(uv))
+    tpad = window.pad_image(torch.from_numpy(img), pad)
+    got_p, got_ok = window.extract_patch_window(
+        tpad, pad, img.shape, torch.from_numpy(uv), rows, cols)
+    assert got_p.shape == got_ok.shape == (len(uv), rows, cols)
+    np.testing.assert_array_equal(got_ok.numpy(), np.asarray(want_ok))
+    np.testing.assert_array_equal(got_p.numpy(), np.asarray(want_p))
+    assert got_ok[0].all() and not got_ok[-2:].any()
+    assert got_ok[8:14].any(dim=(1, 2)).all()
+    assert not got_ok[8:14].all(dim=(1, 2)).any()   # cut by a border
+
+
+def test_bilinear_taps_match_jax_and_wide_patches_are_refused():
+    """The four tap views of a batch of blocks equal JAX's per block. JAX's
+    extract_patch_window slices a square window of rows + 1, so for
+    cols > rows its views come out short and its sum fails; the port
+    refuses such a patch."""
+    block = np.random.default_rng(6).normal(size=(3, 9, 9)).astype(
+        np.float32)
+    got = window.bilinear_taps(torch.from_numpy(block), 8, 5)
+    for k in range(3):
+        want = jax_window.bilinear_taps(jnp.asarray(block[k]), 8, 5)
+        for a, b in zip(want, got):
+            assert b.shape == (3, 8, 5)
+            np.testing.assert_array_equal(np.asarray(a), b[k].numpy())
+    img = np.zeros((20, 30), np.float32)
+    uv = np.array([10.2, 8.7], np.float32)
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        jax_window.extract_patch_window(jax_window.pad_image(
+            jnp.asarray(img), 10), 10, img.shape, jnp.asarray(uv), 7, 9)
+    with pytest.raises(ValueError, match="cols"):
+        window.extract_patch_window(window.pad_image(
+            torch.from_numpy(img), 10), 10, img.shape, torch.from_numpy(uv),
+            7, 9)
+
+
 def test_shi_tomasi_response_matches_jax():
     ref, _ = translated_pair(h=120, w=160)
     for half in (1, 2):
@@ -366,3 +419,26 @@ def test_phase_clock_library_wraps_the_kernel_source(monkeypatch, tmp_path):
     assert _build.phase_clock_library(name, "raft_lookup.cu", True)[1] == (
         wrapper,)
     assert open(wrapper).read() == before
+
+
+def test_fast_kernel_phase_marks_and_diagnostics(monkeypatch, tmp_path):
+    """klt_fast.cu marks every phase of FAST_PHASES and exports its
+    occupancy; without a card the diagnostics raise before any build."""
+    import re
+
+    from feature_tracker_tpu_torch.core.config import KltOptions
+    from feature_tracker_tpu_torch.ops import cuda_klt
+
+    _build, calls = _fake_nvcc(monkeypatch, tmp_path)
+    text = open(f"{_build.CSRC_DIR}/klt_fast.cu").read()
+    marks = {int(m) for m in re.findall(r"FTK_MARK\(phases, (\d+),", text)}
+    assert marks == set(range(len(cuda_klt.FAST_PHASES)))
+    assert "int ftk_klt_fast_occupancy(" in text
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    uv = torch.zeros(3, 2)
+    with pytest.raises(RuntimeError, match="fast_occupancy needs a CUDA"):
+        cuda_klt.fast_occupancy(KltOptions())
+    with pytest.raises(RuntimeError, match="fast_phase_clocks needs a CUDA"):
+        cuda_klt.fast_phase_clocks(KltOptions(), [], [], uv, uv,
+                                   torch.zeros(3, dtype=torch.bool))
+    assert calls == []

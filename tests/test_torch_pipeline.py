@@ -190,3 +190,59 @@ def test_port_imports_no_jax():
             root = mod.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax",
                                 "feature_tracker_tpu"), (path, mod)
+
+
+# Names of the JAX package that a ported module may still lack, each with
+# its reason. Everything else public in a JAX module must be in its
+# counterpart.
+ALLOWED_MISSING = {
+    # RAFT training (raft_train.py) is queued: ROADMAP.md section 1, item 8.
+    "train/__init__.py": {"RaftTrainConfig", "TrainState",
+                          "create_train_state", "make_train_step",
+                          "sequence_loss"},
+}
+PORT = REPO / "feature_tracker_tpu_torch"
+JAX_PACKAGE = REPO / "feature_tracker_tpu"
+COUNTERPARTS = sorted(
+    str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
+    if (JAX_PACKAGE / p.relative_to(PORT)).exists())
+
+
+def _public_names(path):
+    """(functions, classes and upper-case constants defined at the top
+    level and not starting with ``_``; the ``__all__`` list or None), read
+    from the source without importing it."""
+    names, exported = set(), None
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            for t in targets:
+                if isinstance(t, ast.Name) and t.id == "__all__":
+                    exported = list(ast.literal_eval(node.value))
+                elif isinstance(t, ast.Name) and t.id.isupper():
+                    names.add(t.id)
+    return {n for n in names if not n.startswith("_")}, exported
+
+
+@pytest.mark.parametrize("module", COUNTERPARTS)
+def test_ported_module_has_the_jax_public_names(module):
+    """Each port module carries the public names of its JAX counterpart
+    (more is fine), and a package's ``__all__`` is JAX's, in JAX's order,
+    but for the allowed names above."""
+    allowed = ALLOWED_MISSING.get(module, set())
+    jax_names, jax_all = _public_names(JAX_PACKAGE / module)
+    names, exported = _public_names(PORT / module)
+    assert sorted(jax_names - names - allowed) == []
+    if jax_all is not None:
+        assert (exported or []) == [n for n in jax_all if n not in allowed]
+
+
+def test_the_name_guard_covers_the_ported_modules():
+    assert {"ops/__init__.py", "ops/window.py", "models/__init__.py",
+            "train/raft_eval.py", "utils/weights.py", "train/__init__.py",
+            "trackers/klt/basic.py", "pipeline.py"} <= set(COUNTERPARTS)
+    assert set(ALLOWED_MISSING) <= set(COUNTERPARTS)

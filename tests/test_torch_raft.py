@@ -48,7 +48,10 @@ from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
     lookup_correlation_cuda,
     staged_share,
 )
-from feature_tracker_tpu_torch.train.raft_eval import flow_metrics
+from feature_tracker_tpu_torch.train.raft_eval import (
+    evaluate_raft,
+    flow_metrics,
+)
 from feature_tracker_tpu_torch.utils.weights import (
     has_weights,
     load_raft_npz,
@@ -482,6 +485,32 @@ def test_flow_metrics_match_jax():
         for key in want:
             np.testing.assert_allclose(float(got[key]), float(want[key]),
                                        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_evaluate_raft_matches_jax(pair_and_weights, masked):
+    """The metrics of the final prediction against JAX's evaluate_raft on
+    the same weights (carried over by raft_state_from_jax), within 1e-4;
+    ``variables=None`` evaluates the weights the model already holds."""
+    from feature_tracker_tpu.train import raft_eval as jax_eval
+
+    ref, cur, jcfg, variables = pair_and_weights
+    rng = np.random.default_rng(14)
+    gt = rng.normal(0, 2, (2, 48, 64, 2)).astype(np.float32)
+    valid = rng.uniform(size=(2, 48, 64)) > 0.2 if masked else None
+    want = jax_eval.evaluate_raft(
+        jax_raft.Raft(jcfg), variables, jnp.asarray(ref), jnp.asarray(cur),
+        jnp.asarray(gt), None if valid is None else jnp.asarray(valid))
+    model = raft.Raft(options_from_jax(jcfg), device="cpu")
+    got = evaluate_raft(model, raft_state_from_jax(variables), ref, cur, gt,
+                        valid)
+    assert got.keys() == want.keys()
+    for key in want:
+        assert abs(float(got[key]) - float(want[key])) <= 1e-4, key
+    again = evaluate_raft(model, None, ref, cur, _t(gt),
+                          None if valid is None else _t(valid))
+    for key in want:
+        assert float(again[key]) == float(got[key]), key
 
 
 def test_raft_default_device_raises_without_gpu():
