@@ -54,6 +54,22 @@ Phases (any failed check raises, so the exit code is non-zero):
      driven call's last iteration (with the share of tiles it staged in
      shared memory), of its plain version, the materialised route, the encoders, one
      update iteration and whole calls in float32 and bfloat16.
+  6. The slice's other paths on the card, each checked against the same
+     path on the CPU and timed per call (CUDA events, warm-up first, median
+     of >= 20 runs) with a profiler window for the device's idle share:
+     the BRIEF pipeline of bench.py's ``w_brief_match`` (detect 300 corners
+     in both frames of a 752x480 pair translated by (7, -4), describe,
+     Hamming distances, valid-masked ``nearby_match``,
+     ``fill_matched_pixels``) at ``min_valid_response`` 40 and 10; the
+     direct SE(3) pose tracker in DIRECT, INVERSE and FAST at KITTI's
+     1241x376 with its intrinsics, 5 levels and 300 features on a rendered
+     textured plane with a known motion (also against the native DIRECT
+     ground truth); Farnebäck dense flow on the 752x480 pair, 5 levels, 20
+     iterations (also against the native ground truth); and the stream
+     path: the phase-3 sequence as uint8 through ``FrameStream`` (native
+     ring and pyramid) into ``BasicKlt`` on the card, the FAST kernel's
+     launch count set to 0 just before and read just after (one launch per
+     tracked frame).
 Then one JSON line with the kernels of the paths, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -104,6 +120,20 @@ RAFT_ROUTE_TOL = 5e-3   # px
 # bfloat16 against float32 flow, px: loose, the weights are random.
 RAFT_BF16_MEDIAN, RAFT_BF16_P99 = 0.25, 1.5
 RAFT_CPU_TOL = 1e-3     # px, compact model on the card against the CPU
+# Phase 6. The BRIEF pipeline (bench.py's w_brief_match): 300 corners, a
+# Hamming threshold of 60 and a 50 px gate; the JAX package matches 54 and
+# 282 features at the two responses on this pair.
+BRIEF_CAP, BRIEF_RESPONSES = 300, ((40.0, 54), (10.0, 282))
+BRIEF_COUNT_SLACK = 5           # matched count within this of JAX's
+# The direct method at KITTI's shape and intrinsics (bench.py's w_direct).
+KITTI_W, KITTI_H, KITTI_LEVELS, DIRECT_N = 1241, 376, 5, 300
+KITTI_K4 = (718.856, 718.856, 607.1928, 185.2157)
+PLANE_Z = 5.0                   # the textured plane's depth
+DIRECT_POSE_TOL, DIRECT_UV_TOL = 1e-5, 1e-3
+# Farnebäck on the card against the CPU: statistics over interior pixels
+# (the flow is chaotic at the last bit, through bfloat16 roundings).
+DENSE_MARGIN, DENSE_MEAN, DENSE_P99, DENSE_FAR, DENSE_FAR_SHARE = (
+    20, 1e-3, 5e-3, 0.05, 0.005)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -947,6 +977,338 @@ def raft_phases(dev, card):
     }
 
 
+def stage_done(label, since):
+    """Print the seconds a part of phase 6 took; returns the time now."""
+    now = time.perf_counter()
+    print(f"[path] phase {label} took {now - since:.1f} s")
+    return now
+
+
+def path_line(label, ms, card, extra=""):
+    """One line per phase-6 path: ms per call with the card beside it."""
+    print(f"[path] {label}: {ms:.4f} ms per call (CUDA events, median of "
+          f"{REPEATS}){extra}; card {card}")
+
+
+def brief_pipeline(ref, cur, opts, device):
+    """bench.py's w_brief_match on ``device``: detect in both frames,
+    describe, valid-masked Hamming distances, nearby match, fill."""
+    from feature_tracker_tpu_torch.match import (
+        compute_brief,
+        fill_matched_pixels,
+        hamming_distance_matrix,
+        nearby_match,
+    )
+    from feature_tracker_tpu_torch.ops.detect import detect_good_features
+
+    ref_uv, _ = detect_good_features(ref, BRIEF_CAP, opts, device=device)
+    cur_uv, _ = detect_good_features(cur, BRIEF_CAP, opts, device=device)
+    ref_bits, ref_valid = compute_brief(ref, ref_uv)
+    cur_bits, cur_valid = compute_brief(cur, cur_uv)
+    dist = hamming_distance_matrix(ref_bits, cur_bits)
+    dist = torch.where(ref_valid[:, None] & cur_valid[None, :], dist,
+                       torch.inf)
+    idx = nearby_match(dist, ref_uv, cur_uv, max_valid_distance=60.0,
+                       max_col_distance=50.0, max_row_distance=50.0)
+    muv, st = fill_matched_pixels(idx, cur_uv)
+    return ref_uv, cur_uv, ref_bits, cur_bits, idx, muv, st
+
+
+def render_plane(tex, q_wc, p_wc, h, w, k4, z0, tex_scale):
+    """A pinhole camera ``k4`` at (q_wc, p_wc) viewing the textured plane
+    z = z0 (tests/test_direct.py's scene, at any shape)."""
+    from feature_tracker_tpu_torch.core.geometry import quat_to_matrix
+
+    rot = quat_to_matrix(torch.tensor(q_wc, dtype=torch.float64)).numpy()
+    vv, uu = np.mgrid[0:h, 0:w].astype(np.float64)
+    d_cam = np.stack([(uu - k4[2]) / k4[0], (vv - k4[3]) / k4[1],
+                      np.ones_like(uu)], axis=-1)
+    d_world = d_cam @ rot.T
+    lam = (z0 - p_wc[2]) / d_world[..., 2]
+    x = p_wc[0] + lam * d_world[..., 0]
+    y = p_wc[1] + lam * d_world[..., 1]
+    return tex.eval(x * tex_scale, y * tex_scale).astype(np.float32)
+
+
+def small_quat(axis, angle):
+    axis = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    return np.concatenate([[np.cos(angle / 2)],
+                           np.sin(angle / 2) * axis]).astype(np.float32)
+
+
+def kitti_scene(q_true, p_true, seed=11):
+    """The reference and current views of a textured plane at KITTI's
+    shape and intrinsics, and DIRECT_N features back-projected onto it
+    (the KITTI pair and its disparities are not in the repository)."""
+    from synthetic import Texture
+
+    tex = Texture(seed, min_period=8.0, max_period=80.0)
+    # About 0.45 texture units per pixel, as tests/test_direct.py's scene.
+    tex_scale = 0.45 * KITTI_K4[0] / PLANE_Z
+    args = (KITTI_H, KITTI_W, KITTI_K4, PLANE_Z, tex_scale)
+    ref = render_plane(tex, np.array([1.0, 0, 0, 0]), np.zeros(3), *args)
+    cur = render_plane(tex, q_true, p_true, *args)
+    # Integer pixels anywhere in the image, as bench.py's w_direct draws
+    # them (some leave the image under the motion and end OUTSIDE).
+    rng = np.random.default_rng(0)
+    ref_uv = np.stack([rng.integers(0, KITTI_W, DIRECT_N),
+                       rng.integers(0, KITTI_H, DIRECT_N)],
+                      -1).astype(np.float32)
+    fx, fy, cx, cy = KITTI_K4
+    p_ref = np.stack([(ref_uv[:, 0] - cx) / fx * PLANE_Z,
+                      (ref_uv[:, 1] - cy) / fy * PLANE_Z,
+                      np.full(DIRECT_N, PLANE_Z)], -1).astype(np.float32)
+    return ref, cur, ref_uv, p_ref
+
+
+def slice_paths(dev, card, frames):
+    """Phase 6 (see the module docstring): the BRIEF pipeline, the direct
+    method, Farnebäck and the stream into the FAST tracker, each on the
+    card against the CPU, timed and profiled."""
+    from synthetic import translated_pair
+
+    from feature_tracker_tpu_torch.core.config import (
+        HarrisOptions,
+        KltOptions,
+    )
+    from feature_tracker_tpu_torch.core.status import TrackStatus
+    from feature_tracker_tpu_torch.ops import cuda_klt
+    from feature_tracker_tpu_torch.ops.detect import detect_good_features
+    from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
+    from feature_tracker_tpu_torch.runtime import (
+        FrameStream,
+        cpu_baseline,
+        get_runtime,
+    )
+    from feature_tracker_tpu_torch.trackers.dense import (
+        DenseFlowOptions,
+        DenseOpticalFlow,
+    )
+    from feature_tracker_tpu_torch.trackers.direct import (
+        DirectMethod,
+        DirectMethodMode,
+        DirectMethodOptions,
+    )
+    from feature_tracker_tpu_torch.trackers.klt import BasicKlt
+
+    t_phase = time.perf_counter()
+    check(cpu_baseline.available(), "the native ground truth did not build")
+    ref, cur = translated_pair(h=H, w=W, shift=PAIR_SHIFT)
+    ref_d = torch.from_numpy(ref).to(dev)
+    cur_d = torch.from_numpy(cur).to(dev)
+
+    # 6a. The BRIEF pipeline.
+    for response, jax_matched in BRIEF_RESPONSES:
+        opts = HarrisOptions(min_feature_distance=20,
+                             min_valid_response=response)
+        got = brief_pipeline(ref_d, cur_d, opts, dev)
+        want = brief_pipeline(torch.from_numpy(ref), torch.from_numpy(cur),
+                              opts, "cpu")
+        for name, g, w_ in zip(("ref uv", "cur uv", "ref bits", "cur bits",
+                                "indices", "matched uv", "statuses"),
+                               got, want):
+            check(torch.equal(g.cpu(), w_),
+                  f"brief response {response}: {name} differ card vs CPU")
+        ref_uv, st = got[0].cpu().numpy(), got[6].cpu().numpy()
+        ok = st == int(TrackStatus.TRACKED)
+        err = np.abs(got[5].cpu().numpy()[ok] - ref_uv[ok]
+                     - np.asarray(PAIR_SHIFT)).max(1)
+        within = float((err <= 1.0).mean()) if ok.any() else 0.0
+        valid = int(((ref_uv >= 0).all(1)).sum())
+        ms = cuda_ms(lambda: brief_pipeline(ref_d, cur_d, opts, dev))
+        path_line(f"brief pipeline 752x480 cap {BRIEF_CAP} response "
+                  f"{response}", ms, card,
+                  f"; {valid} corners, {int(ok.sum())} matched (JAX "
+                  f"{jax_matched}), {within:.4f} within 1 px of the shift; "
+                  "bits, indices and statuses equal to the CPU's")
+        check(abs(int(ok.sum()) - jax_matched) <= BRIEF_COUNT_SLACK,
+              f"brief response {response}: {int(ok.sum())} matched, JAX "
+              f"{jax_matched}")
+        check(within >= 0.95, f"brief response {response}: only {within} "
+              "of the matches within 1 px")
+        profile_window(f"brief pipeline response {response}",
+                       lambda: brief_pipeline(ref_d, cur_d, opts, dev),
+                       calls=3)
+
+    t_phase = stage_done("6a (BRIEF)", t_phase)
+
+    # 6b. The direct method at KITTI's shape.
+    q_true = small_quat([0, 1, 0], 0.01)
+    p_true = np.array([0.12, -0.06, 0.08], np.float32)
+    kref, kcur, kuv, kp = kitti_scene(q_true, p_true)
+    k4 = np.asarray(KITTI_K4, np.float32)
+    pyr_d = (build_pyramid(kref, KITTI_LEVELS, device=dev),
+             build_pyramid(kcur, KITTI_LEVELS, device=dev))
+    pyr_c = (build_pyramid(kref, KITTI_LEVELS, device="cpu"),
+             build_pyramid(kcur, KITTI_LEVELS, device="cpu"))
+    native = cpu_baseline.direct_method_cpu(*pyr_c, k4, kp, kuv)
+    for mode in (DirectMethodMode.DIRECT, DirectMethodMode.INVERSE,
+                 DirectMethodMode.FAST):
+        opts = DirectMethodOptions(method=mode)
+        card_tracker = DirectMethod(opts, device=dev)
+        t_first = time.perf_counter()
+        got = [x.cpu().numpy() for x in card_tracker.track(*pyr_d, k4, kp,
+                                                           kuv)]
+        t_cpu = time.perf_counter()
+        stats = card_tracker.last_stats
+        want = [x.numpy() for x in DirectMethod(opts, device="cpu").track(
+            *pyr_c, k4, kp, kuv)]
+        print(f"[path] direct {mode.value}: first call on the card "
+              f"{t_cpu - t_first:.2f} s (host clock, library loads "
+              f"included), the same call on the CPU "
+              f"{time.perf_counter() - t_cpu:.2f} s")
+        others = [("the CPU", want)]
+        if mode == DirectMethodMode.DIRECT:
+            others.append(("the native ground truth", native))
+        for who, (uv_w, q_w, p_w, st_w) in others:
+            dq = float(np.abs(got[1] - q_w).max())
+            dp = float(np.abs(got[2] - p_w).max())
+            duv = float(np.abs(got[0] - uv_w).max())
+            flips = int((got[3] != st_w).sum())
+            print(f"[compare] direct {mode.value} 1241x376 L=5 N=300 card vs "
+                  f"{who}: |dq| {dq:.3g} |dp| {dp:.3g} |duv| {duv:.3g} px, "
+                  f"{flips} status differences")
+            check(dq <= DIRECT_POSE_TOL and dp <= DIRECT_POSE_TOL
+                  and duv <= DIRECT_UV_TOL and flips == 0,
+                  f"direct {mode.value}: card vs {who} differ")
+        qd = min(np.linalg.norm(got[1] - q_true),
+                 np.linalg.norm(got[1] + q_true))
+        pd = float(np.linalg.norm(got[2] - p_true))
+        tracked = float((got[3] == int(TrackStatus.TRACKED)).mean())
+        check(pd < 0.02 and qd < 5e-3 and tracked > 0.9,
+              f"direct {mode.value}: pose not recovered (|dp| {pd}, "
+              f"|dq| {qd}, tracked {tracked})")
+        ms = cuda_ms(lambda: card_tracker.track(*pyr_d, k4, kp, kuv))
+        path_line(f"direct {mode.value} 1241x376 L=5 N=300", ms, card,
+                  f"; GN iterations per level (coarsest first) "
+                  f"{stats['iterations']}, {stats['host_syncs']} host syncs "
+                  f"per call; pose error |dp| {pd:.4g} |dq| {qd:.4g}, "
+                  f"tracked {tracked:.4f}")
+        # (Few calls: the profiler's own processing of thousands of small
+        # launches per call takes seconds.)
+        profile_window(f"direct {mode.value} per frame",
+                       lambda: card_tracker.track(*pyr_d, k4, kp, kuv),
+                       calls=2)
+
+    t_phase = stage_done("6b (direct method)", t_phase)
+
+    # 6c. Farnebäck.
+    dopts = DenseFlowOptions(half_patch_size=2, max_iterations=20)
+    rp_d = build_pyramid(ref, 5, quantize=False, device=dev)
+    cp_d = build_pyramid(cur, 5, quantize=False, device=dev)
+    rp_c = build_pyramid(ref, 5, quantize=False, device="cpu")
+    cp_c = build_pyramid(cur, 5, quantize=False, device="cpu")
+    flow_tracker = DenseOpticalFlow(dopts, device=dev)
+    flow = flow_tracker.track(rp_d, cp_d).cpu().numpy()
+    its = flow_tracker.last_stats["iterations"]
+    m = DENSE_MARGIN
+    inner = flow[:, m:-m, m:-m]
+    d = np.abs(inner - DenseOpticalFlow(dopts, device="cpu").track(
+        rp_c, cp_c).numpy()[:, m:-m, m:-m])
+    d_native = np.abs(inner - cpu_baseline.farneback_cpu(
+        rp_c, cp_c, dopts)[:, m:-m, m:-m])
+    med_r, med_c = float(np.median(inner[0])), float(np.median(inner[1]))
+    print(f"[compare] farneback 752x480 L=5 20 iterations card vs CPU, "
+          f"interior (margin {m}): mean |d| {d.mean():.3g} px, p99 "
+          f"{np.percentile(d, 99):.3g} px, max {d.max():.3g} px, share > "
+          f"{DENSE_FAR} px {(d > DENSE_FAR).mean():.4g}; vs the native "
+          f"ground truth: mean |d| {d_native.mean():.4g} px; median flow "
+          f"(rows, columns) ({med_r:.5f}, {med_c:.5f}), true "
+          f"({PAIR_SHIFT[1]}, {PAIR_SHIFT[0]})")
+    check(d.mean() <= DENSE_MEAN and np.percentile(d, 99) <= DENSE_P99
+          and (d > DENSE_FAR).mean() <= DENSE_FAR_SHARE,
+          "farneback: card vs CPU beyond the statistics' limits")
+    check(abs(med_r - PAIR_SHIFT[1]) <= 0.05
+          and abs(med_c - PAIR_SHIFT[0]) <= 0.05,
+          f"farneback: median flow ({med_r}, {med_c})")
+    check(d_native.mean() < 0.05, "farneback: card vs native ground truth")
+    ms = cuda_ms(lambda: flow_tracker.track(rp_d, cp_d))
+    path_line("farneback 752x480 L=5 20 iterations", ms, card,
+              f"; iterations per level (coarsest first) {its}, "
+              f"{sum(its)} host syncs per call")
+    profile_window("farneback per frame",
+                   lambda: flow_tracker.track(rp_d, cp_d), calls=2)
+
+    t_phase = stage_done("6c (Farnebäck)", t_phase)
+
+    # 6d. The stream into the FAST tracker.
+    u8 = [np.clip(np.round(f), 0, 255).astype(np.uint8) for f in frames]
+    detect_opts = HarrisOptions(min_feature_distance=25,
+                                min_valid_response=40.0)
+    kopts = KltOptions(max_track_points=BRIEF_CAP)
+    tracker = BasicKlt(kopts, device=dev)
+
+    def chain(pyramids, events=None):
+        """Detect on the first pyramid, track through the rest: the demo's
+        loop. Returns the (uv, status) after each frame."""
+        out, prev = [], None
+        for pyr in pyramids:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            pyr = tuple(torch.as_tensor(l, device=dev) for l in pyr)
+            if prev is None:
+                uv, num = detect_good_features(pyr[0], BRIEF_CAP, detect_opts,
+                                               device=dev)
+                status = torch.where(
+                    torch.arange(BRIEF_CAP, device=dev) < num,
+                    int(TrackStatus.NOT_TRACKED),
+                    int(TrackStatus.OUTSIDE)).to(torch.int8)
+            else:
+                uv, status = tracker.track(prev, pyr, uv, uv, status)
+                end.record()
+                if events is not None:
+                    events.append((start, end))
+                out.append((uv.clone(), status.clone()))
+                status = torch.where(status == int(TrackStatus.TRACKED),
+                                     int(TrackStatus.NOT_TRACKED),
+                                     status).to(torch.int8)
+            prev = pyr
+        return out
+
+    streamed, events = [], []
+
+    def stream_pyramids(stream):
+        for fid, pyr in stream:
+            want = build_pyramid(u8[fid], 4, quantize=True, device=dev)
+            check(all(torch.equal(torch.as_tensor(a, device=dev), b)
+                      for a, b in zip(pyr, want)),
+                  f"stream frame {fid}: pyramid differs from build_pyramid")
+            streamed.append(fid)
+            yield pyr
+
+    stream = FrameStream(iter(u8), levels=4, capacity=len(u8))
+    cuda_klt.track_pyramid_fast_cuda.launches = 0
+    got = chain(stream_pyramids(stream), events)
+    launches = cuda_klt.track_pyramid_fast_cuda.launches
+    torch.cuda.synchronize()
+    want = chain(build_pyramid(f, 4, quantize=True, device=dev) for f in u8)
+    check(streamed == list(range(len(u8))) and stream.dropped == 0,
+          f"stream: frames {streamed}, {stream.dropped} dropped")
+    check(launches == len(u8) - 1,
+          f"stream: {launches} FAST launches over {len(u8) - 1} tracked "
+          "frames")
+    for i, ((gu, gs), (wu, ws)) in enumerate(zip(got, want)):
+        check(torch.equal(gu, wu) and torch.equal(gs, ws),
+              f"stream frame {i + 1}: uv or statuses differ from the chain "
+              "on build_pyramid pyramids")
+    alive = int((got[-1][1] == int(TrackStatus.TRACKED)).sum())
+    frame_ms = [s.elapsed_time(e) for s, e in events[2:]]
+    path_line(f"stream {len(u8)} frames 752x480 L=4 into BasicKlt FAST "
+              f"N={BRIEF_CAP} (upload + track per tracked frame)",
+              float(np.median(frame_ms)), card,
+              f"; native runtime {get_runtime().is_native}, "
+              f"{stream.dropped} frames dropped, {launches} FAST launches, "
+              f"{alive} tracked on the last frame")
+    check(alive >= BRIEF_CAP // 10, f"stream: {alive} tracked at the end")
+    more = [build_pyramid(f, 4, quantize=True, device="cpu") for f in u8[:6]]
+    host = [tuple(l.numpy() for l in p) for p in more]
+    profile_window("stream chain of 6 frames",
+                   lambda: chain(iter(host)), calls=2)
+    stage_done("6d (stream)", t_phase)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1362,6 +1724,7 @@ def main() -> int:
                    lambda: fe.process_frame(next(more)), calls=10)
 
     kernels.append(raft_phases(dev, card))
+    slice_paths(dev, card, frames)
 
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           "a kernel of the paths was not launched on its main path")

@@ -1,12 +1,15 @@
 """Carry state across from the JAX package, without importing it.
 
-The KLT trackers have no learned weights, so what crosses is options, a
-tracker's warp predictions and the front end's track state:
+The trackers and matchers have no learned weights, so what crosses is
+options, a tracker's warp predictions and the front end's track state:
 
   opts = options_from_jax(jax_front_end.cfg)        # FrontEndConfig
   tracker = tracker_from_jax(jax_front_end.tracker, device="cuda")
   fe = TrackingFrontEnd(opts, tracker=tracker, device="cuda")
   fe.load_state_dict(front_end_state_from_jax(jax_front_end))
+  pose = tracker_from_jax(jax_direct_method, device="cuda")   # DirectMethod
+  flow = tracker_from_jax(jax_dense_flow, device="cuda")  # DenseOpticalFlow
+  matcher_opts = options_from_jax(jax_matcher_options)     # MatcherOptions
 
 RAFT's weights cross as a Flax variables tree of numpy arrays:
 
@@ -32,8 +35,18 @@ from feature_tracker_tpu_torch.core.config import (
     KltOptions,
     PyramidOptions,
 )
+from feature_tracker_tpu_torch.match.matcher import MatcherOptions
 from feature_tracker_tpu_torch.models.raft import RaftConfig
 from feature_tracker_tpu_torch.pipeline import FrontEndConfig
+from feature_tracker_tpu_torch.trackers.dense import (
+    DenseFlowOptions,
+    DenseOpticalFlow,
+)
+from feature_tracker_tpu_torch.trackers.direct import (
+    DirectMethod,
+    DirectMethodMode,
+    DirectMethodOptions,
+)
 from feature_tracker_tpu_torch.trackers.klt import (
     AffineKlt,
     BasicKlt,
@@ -42,18 +55,22 @@ from feature_tracker_tpu_torch.trackers.klt import (
 
 _PORT_CONFIGS = {cls.__name__: cls for cls in
                  (KltOptions, HarrisOptions, PyramidOptions, FrontEndConfig,
-                  RaftConfig)}
+                  RaftConfig, MatcherOptions, DirectMethodOptions,
+                  DenseFlowOptions)}
+_PORT_ENUMS = {cls.__name__: cls for cls in (KltMethod, DirectMethodMode)}
 
 
 def options_from_jax(obj):
     """The port's counterpart of a JAX ``KltOptions``, ``HarrisOptions``,
-    ``PyramidOptions``, ``FrontEndConfig`` or ``RaftConfig`` (nested
-    configs included), built field by field; ``KltMethod`` crosses by its
-    ``.value``, a float dtype by its name."""
+    ``PyramidOptions``, ``FrontEndConfig``, ``RaftConfig``,
+    ``MatcherOptions``, ``DirectMethodOptions`` or ``DenseFlowOptions``
+    (nested configs included), built field by field; ``KltMethod`` and
+    ``DirectMethodMode`` cross by their ``.value``, a float dtype by its
+    name."""
     if isinstance(obj, enum.Enum):
-        if type(obj).__name__ != KltMethod.__name__:
+        if type(obj).__name__ not in _PORT_ENUMS:
             raise TypeError(f"no port counterpart for enum {type(obj)!r}")
-        return KltMethod(obj.value)
+        return _PORT_ENUMS[type(obj).__name__](obj.value)
     if not dataclasses.is_dataclass(obj) or isinstance(obj, type):
         return obj
     name = type(obj).__name__
@@ -73,14 +90,20 @@ def options_from_jax(obj):
 
 
 def tracker_from_jax(jax_tracker, device="cuda"):
-    """The port's ``BasicKlt`` / ``AffineKlt`` / ``LssdKlt`` for a JAX
-    tracker, matched by class name: its options, its ``predict_affine`` or
-    ``predict_rotation`` (as numpy) and ``consider_patch_luminance``."""
+    """The port's ``BasicKlt`` / ``AffineKlt`` / ``LssdKlt`` /
+    ``DirectMethod`` / ``DenseOpticalFlow`` for a JAX tracker, matched by
+    class name: its options, its ``predict_affine`` or ``predict_rotation``
+    (as numpy) and ``consider_patch_luminance``."""
     name = type(jax_tracker).__name__
-    if name not in ("BasicKlt", "AffineKlt", "LssdKlt"):
+    if name not in ("BasicKlt", "AffineKlt", "LssdKlt", "DirectMethod",
+                    "DenseOpticalFlow"):
         raise TypeError(
             f"no port counterpart for tracker {type(jax_tracker)!r}")
     opts = options_from_jax(jax_tracker.options)
+    if name == "DirectMethod":
+        return DirectMethod(opts, device=device)
+    if name == "DenseOpticalFlow":
+        return DenseOpticalFlow(opts, device=device)
     if name == "BasicKlt":
         return BasicKlt(opts, device=device)
     if name == "AffineKlt":

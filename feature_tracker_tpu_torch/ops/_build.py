@@ -62,24 +62,33 @@ def library_path(name: str, sources, fmad: bool = False) -> str:
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
+    proc = compile_to(out, [find_nvcc(), *flags], paths)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {name}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    with open(out + ".log", "w") as fh:
+        fh.write(proc.stdout + proc.stderr)
+    return out
+
+
+def compile_to(out: str, command, sources, timeout: int = 600):
+    """Run ``command -o <tmp> sources`` and, if it succeeds, rename the
+    temporary file to ``out`` (in the build directory). Building under a
+    temporary name means a concurrent build never loads a half-written
+    library. Returns the finished process (text output)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # Build under a temporary name and rename: concurrent builders never
-    # load a half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([find_nvcc(), *flags, "-o", tmp, *paths],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {name}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        with open(out + ".log", "w") as fh:
-            fh.write(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+        proc = subprocess.run([*command, "-o", tmp, *sources],
+                              capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        return proc
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return out
 
 
 def phase_clock_library(name: str, source: str, fmad: bool = False):

@@ -39,8 +39,11 @@ from feature_tracker_tpu_torch.trackers.klt.lssd import (
 
 from chip_smoke import (
     boundary_locations,
+    brief_pipeline,
     lookup_inputs,
+    render_plane,
     scattered_locations,
+    small_quat,
 )
 from synthetic import se2_pair, translated_pair
 
@@ -813,3 +816,77 @@ def test_raft_lookup_inputs_the_kernel_cannot_take_raise(card):
     empty = lookup_correlation_cuda(f0[:0], [p[:0] for p in pyr], locs[:0], 2)
     assert empty.shape == (0, 8, 8, 50)
     assert lookup_correlation_cuda.launches == before
+
+
+# The slice of modules without a kernel of their own (matching, the direct
+# method, Farnebäck): on the card they run the same torch operations as on
+# the CPU, and are held to the CPU here (``card`` is the fixture above).
+
+@pytest.mark.parametrize("response", [40.0, 10.0])
+def test_brief_pipeline_card_equals_cpu(card, response):
+    """Corners, BRIEF bits, match indices, matched uv and statuses equal."""
+    from feature_tracker_tpu_torch.core.config import HarrisOptions
+
+    ref, cur = translated_pair(h=240, w=320, shift=(7.0, -4.0))
+    opts = HarrisOptions(min_feature_distance=20, min_valid_response=response)
+    got = brief_pipeline(torch.from_numpy(ref).cuda(),
+                         torch.from_numpy(cur).cuda(), opts, "cuda")
+    want = brief_pipeline(torch.from_numpy(ref), torch.from_numpy(cur), opts,
+                          "cpu")
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+    assert (want[6] == 1).sum() >= 10
+
+
+@pytest.mark.parametrize("mode", ["direct", "inverse", "fast"])
+def test_direct_pose_card_matches_cpu(card, mode):
+    """tests/test_direct.py's scene: q and p within 1e-5, uv within 1e-3
+    px, statuses equal."""
+    from synthetic import Texture
+
+    from feature_tracker_tpu_torch.trackers.direct import (
+        DirectMethod,
+        DirectMethodMode,
+        DirectMethodOptions,
+    )
+
+    k4 = np.array([200.0, 200.0, 160.0, 120.0], np.float32)
+    tex = Texture(11, min_period=8.0, max_period=80.0)
+    args = (240, 320, k4, 5.0, 18.0)
+    ref = render_plane(tex, np.array([1.0, 0, 0, 0]), np.zeros(3), *args)
+    cur = render_plane(tex, small_quat([0, 1, 0], 0.01),
+                       np.array([0.12, -0.06, 0.08]), *args)
+    gu, gv = np.meshgrid(np.arange(50, 270, 20.0), np.arange(50, 190, 20.0))
+    uv = np.stack([gu.ravel(), gv.ravel()], -1).astype(np.float32)
+    p_ref = np.concatenate([(uv - k4[2:]) / k4[:2] * 5.0,
+                            np.full((len(uv), 1), 5.0)], 1).astype(np.float32)
+    opts = DirectMethodOptions(method=DirectMethodMode(mode))
+    got = DirectMethod(opts, device="cuda").track(
+        build_pyramid(ref, 3, device="cuda"),
+        build_pyramid(cur, 3, device="cuda"), k4, p_ref, uv)
+    want = DirectMethod(opts, device="cpu").track(
+        build_pyramid(ref, 3, device="cpu"),
+        build_pyramid(cur, 3, device="cpu"), k4, p_ref, uv)
+    for g, w, tol in zip(got, want, (1e-3, 1e-5, 1e-5, 0)):
+        assert g.is_cuda
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=tol)
+
+
+def test_farneback_card_matches_cpu_in_distribution(card):
+    """Interior pixels: mean |d| <= 1e-3 px, 99th percentile <= 5e-3 px."""
+    from feature_tracker_tpu_torch.trackers.dense import (
+        DenseFlowOptions,
+        DenseOpticalFlow,
+    )
+
+    ref, cur = translated_pair(h=240, w=320, shift=(3.0, -2.0))
+    opts = DenseFlowOptions(half_patch_size=2, max_iterations=20)
+    got = DenseOpticalFlow(opts, device="cuda").track(
+        build_pyramid(ref, 4, quantize=False, device="cuda"),
+        build_pyramid(cur, 4, quantize=False, device="cuda"))
+    want = DenseOpticalFlow(opts, device="cpu").track(
+        build_pyramid(ref, 4, quantize=False, device="cpu"),
+        build_pyramid(cur, 4, quantize=False, device="cpu"))
+    d = (got.cpu() - want).abs()[:, 20:-20, 20:-20].numpy()
+    assert d.mean() <= 1e-3 and np.percentile(d, 99) <= 5e-3

@@ -244,5 +244,11 @@ def test_ported_module_has_the_jax_public_names(module):
 def test_the_name_guard_covers_the_ported_modules():
     assert {"ops/__init__.py", "ops/window.py", "models/__init__.py",
             "train/raft_eval.py", "utils/weights.py", "train/__init__.py",
-            "trackers/klt/basic.py", "pipeline.py"} <= set(COUNTERPARTS)
+            "trackers/klt/basic.py", "pipeline.py",
+            "match/__init__.py", "match/brief.py", "match/matcher.py",
+            "core/geometry.py", "trackers/direct.py", "trackers/dense.py",
+            "runtime/__init__.py", "runtime/native.py", "runtime/stream.py",
+            "runtime/cpu_baseline.py", "utils/__init__.py", "utils/log.py",
+            "utils/timer.py", "utils/profiling.py",
+            "utils/viz.py"} <= set(COUNTERPARTS)
     assert set(ALLOWED_MISSING) <= set(COUNTERPARTS)
