@@ -70,6 +70,21 @@ Phases (any failed check raises, so the exit code is non-zero):
      ring and pyramid) into ``BasicKlt`` on the card, the FAST kernel's
      launch count set to 0 just before and read just after (one launch per
      tracked frame).
+  7. The neural models on their shipped weights (``weights/*.npz``, read
+     by the port's loaders; a missing file fails the run), each on the
+     card against the same model on the CPU, timed per call (CUDA events,
+     inputs on the card) and profiled for the device's idle share:
+     ``SuperPointDetector.from_file(max_features=300)`` on both frames of
+     the headline pair into ``NNFeatureMatcher.from_file`` in both
+     SuperPoint variants (uv and counts equal, descriptors within 1e-5,
+     valid scores within 1e-3, matched uv and statuses equal); the same
+     with ``DiskDetector`` and the DISK variants; bench.py's
+     ``w_lightglue`` shape (256 random keypoints, depth 9); and CoTracker
+     at the configuration of ``weights/metrics.json`` on 8 frames of 96x96
+     with 24 queries and on 24 frames of 384x512 with 256 queries (each
+     iteration from the CPU's positions within 1e-3 px and 1e-3 in the
+     visibility logits; the whole run within those or twice the card's
+     own spread under a one-ulp change of the video).
 Then one JSON line with the kernels of the paths, the card's name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -134,6 +149,19 @@ DIRECT_POSE_TOL, DIRECT_UV_TOL = 1e-5, 1e-3
 # (the flow is chaotic at the last bit, through bfloat16 roundings).
 DENSE_MARGIN, DENSE_MEAN, DENSE_P99, DENSE_FAR, DENSE_FAR_SHARE = (
     20, 1e-3, 5e-3, 0.05, 0.005)
+# Phase 7: the neural models on their shipped weights (weights/*.npz), each
+# on the card against the same model on the CPU.
+MODEL_CAP = 300                 # keypoints per frame (SuperPoint, DISK)
+DESC_TOL, SCORE_TOL = 1e-5, 1e-3
+LG_BENCH_N = 256                # bench.py's w_lightglue
+# CoTracker: the training shape of metrics.json, then a longer, larger
+# clip; (frames, height, width, queries). The texture moves COT_STEP px
+# per frame. Each iteration is held from the CPU's positions; the whole
+# run against the card's own spread under a one-ulp change of the video
+# (the flow embedding's high channels, see models/cotracker.py).
+COT_CLIPS = ((8, 96, 96, 24), (24, 384, 512, 256))
+COT_STEP = (0.7, -0.4)
+COT_TRACK_TOL, COT_VIS_TOL = 1e-3, 1e-3
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -984,10 +1012,11 @@ def stage_done(label, since):
     return now
 
 
-def path_line(label, ms, card, extra=""):
-    """One line per phase-6 path: ms per call with the card beside it."""
+def path_line(label, ms, card, extra="", repeats=REPEATS):
+    """One line per phase-6 or phase-7 path: ms per call with the card
+    beside it."""
     print(f"[path] {label}: {ms:.4f} ms per call (CUDA events, median of "
-          f"{REPEATS}){extra}; card {card}")
+          f"{repeats}){extra}; card {card}")
 
 
 def brief_pipeline(ref, cur, opts, device):
@@ -1307,6 +1336,200 @@ def slice_paths(dev, card, frames):
                    lambda: chain(iter(host)), calls=2)
     stage_done("6d (stream)", t_phase)
     return launches
+
+
+def cotracker_clip(t, h, w, n, seed=0):
+    """``t`` frames ``[t, h, w, 1]`` of the synthetic texture moving
+    COT_STEP px per frame, and ``n`` queries on frame 0 (numpy)."""
+    from synthetic import Texture
+
+    tex = Texture(seed)
+    video = np.stack([tex.render(h, w, warp=lambda x, y, k=k: (
+        x - k * COT_STEP[0], y - k * COT_STEP[1])) for k in range(t)])
+    rng = np.random.default_rng(seed)
+    queries = rng.uniform(8, [w - 8, h - 8], (n, 2)).astype(np.float32)
+    return video[..., None].astype(np.float32), queries
+
+
+def model_paths(dev, card):
+    """Phase 7 (see the module docstring): SuperPoint and DISK into
+    LightGlue on the headline pair, bench's LightGlue shape and CoTracker,
+    each on the card against the CPU, timed and profiled."""
+    from synthetic import translated_pair
+
+    from feature_tracker_tpu_torch.core.status import TrackStatus
+    from feature_tracker_tpu_torch.match.nn_matcher import (
+        NNFeatureMatcher,
+        NNMatcherModelType,
+        NNMatcherOptions,
+    )
+    from feature_tracker_tpu_torch.models.cotracker import CoTracker
+    from feature_tracker_tpu_torch.models.disk import DiskDetector
+    from feature_tracker_tpu_torch.models.lightglue import NEG_INF
+    from feature_tracker_tpu_torch.models.superpoint import (
+        SuperPointDetector,
+    )
+    from feature_tracker_tpu_torch.utils.weights import (
+        has_weights,
+        load_cotracker_npz,
+        shipped_cotracker_config,
+        weights_path,
+    )
+
+    t_phase = time.perf_counter()
+    for name in ("superpoint.npz", "disk.npz", "lightglue_superpoint.npz",
+                 "lightglue_disk.npz", "cotracker.npz"):
+        check(has_weights(name), f"phase 7 runs the shipped weights, and "
+              f"weights/{name} is missing")
+    ref, cur = translated_pair(h=H, w=W, shift=PAIR_SHIFT)
+    frames = [torch.from_numpy(f).to(dev) for f in (ref, cur)]
+    shift = torch.tensor(PAIR_SHIFT)
+
+    # 7a and 7b: a detector on both frames, then both LightGlue variants of
+    # its descriptor width.
+    for sub, label, det_cls, variants in (
+            ("7a", "superpoint", SuperPointDetector,
+             (NNMatcherModelType.LIGHTGLUE_SUPERPOINT_SCORE_MAT,
+              NNMatcherModelType.LIGHTGLUE_SUPERPOINT_MATCHES)),
+            ("7b", "disk", DiskDetector,
+             (NNMatcherModelType.LIGHTGLUE_DISK_SCORE_MAT,
+              NNMatcherModelType.LIGHTGLUE_DISK_MATCHES))):
+        det = det_cls.from_file(max_features=MODEL_CAP, device=dev)
+        det_cpu = det_cls(det.variables, max_features=MODEL_CAP,
+                          device="cpu")
+        got = [det.detect(f) for f in frames]
+        desc_err = 0.0
+        for (gu, gd, gn), frame, which in zip(got, (ref, cur),
+                                              ("ref", "cur")):
+            wu, wd, wn = det_cpu.detect(frame)
+            check(torch.equal(gu.cpu(), wu) and int(gn) == int(wn),
+                  f"{label} {which}: keypoints differ card vs CPU "
+                  f"({int(gn)} / {int(wn)})")
+            desc_err = max(desc_err, float((gd.cpu() - wd).abs().max()))
+        check(desc_err <= DESC_TOL, f"{label}: descriptors {desc_err} from "
+              "the CPU's")
+        ms = cuda_ms(lambda: det.detect(frames[0]), repeats=10)
+        path_line(f"{label} detect 752x480 max_features={MODEL_CAP}", ms,
+                  card, f"; {int(got[0][2])} / {int(got[1][2])} keypoints, "
+                  "uv equal to the CPU's, descriptors within "
+                  f"{desc_err:.3g}", repeats=10)
+        profile_window(f"{label} detect 752x480",
+                       lambda: det.detect(frames[0]), calls=2)
+
+        (ru, rd, rn), (cu, cd, cn) = got
+        mask_r = torch.arange(MODEL_CAP, device=dev) < rn
+        mask_c = torch.arange(MODEL_CAP, device=dev) < cn
+        pair = (mask_r[:, None] & mask_c[None, :]).cpu()
+        args = (ru, rd, cu, cd, mask_r, mask_c)
+        cpu_args = tuple(a.cpu() for a in args)
+        for variant in variants:
+            m = NNFeatureMatcher.from_file(
+                NNMatcherOptions(model_type=variant), device=dev)
+            m_cpu = NNFeatureMatcher(m.options, variables=m.variables,
+                                     device="cpu")
+            sc = m.scores(*args).cpu()
+            sc_cpu = m_cpu.scores(*cpu_args)
+            score_err = float((sc - sc_cpu).abs()[pair].max())
+            check(score_err <= SCORE_TOL and bool((sc[~pair] == NEG_INF)
+                                                  .all()),
+                  f"{variant.name}: scores {score_err} from the CPU's")
+            match_args = (rd, cd, ru, cu, mask_r, mask_c)
+            muv, st = m.match(*match_args)
+            muv_c, st_c = m_cpu.match(*(a.cpu() for a in match_args))
+            check(torch.equal(st.cpu(), st_c) and torch.equal(muv.cpu(),
+                                                              muv_c),
+                  f"{variant.name}: matches differ card vs CPU")
+            ok = st.cpu() == int(TrackStatus.TRACKED)
+            err = (muv.cpu()[ok] - ru.cpu()[ok] - shift).abs().amax(1)
+            within = float((err <= 1.0).float().mean()) if ok.any() else 0.0
+            ms = cuda_ms(lambda: m.match(*match_args), repeats=10)
+            path_line(f"{variant.name} match {int(rn)} x {int(cn)}", ms,
+                      card, f"; {int(ok.sum())} matched, {within:.4f} "
+                      "within 1 px of the shift; scores within "
+                      f"{score_err:.3g} of the CPU's, statuses and matched "
+                      "uv equal", repeats=10)
+            profile_window(f"{variant.name} match",
+                           lambda: m.match(*match_args), calls=2)
+            if variant == NNMatcherModelType.LIGHTGLUE_SUPERPOINT_SCORE_MAT:
+                sp_matcher = m
+        t_phase = stage_done(f"{sub} ({label} into LightGlue)", t_phase)
+
+    # 7c. bench.py's w_lightglue: 256 random keypoints and descriptors.
+    rng = np.random.default_rng(0)
+    n = LG_BENCH_N
+    kr, kc = (rng.uniform(0, 480, (n, 2)).astype(np.float32)
+              for _ in range(2))
+    dr, dc = (rng.normal(0, 1, (n, 256)).astype(np.float32)
+              for _ in range(2))
+    m = sp_matcher
+    m_cpu = NNFeatureMatcher(m.options, variables=m.variables, device="cpu")
+    args = [torch.from_numpy(a).to(dev) for a in (kr, dr, kc, dc)]
+    sc = m.scores(*args).cpu()
+    score_err = float((sc - m_cpu.scores(kr, dr, kc, dc)).abs().max())
+    check(score_err <= SCORE_TOL, f"w_lightglue: scores {score_err} from "
+          "the CPU's")
+    ms = cuda_ms(lambda: m.scores(*args))
+    path_line(f"lightglue scores N={n} depth 9 (bench's w_lightglue, "
+              "shipped SuperPoint weights)", ms, card,
+              f"; scores within {score_err:.3g} of the CPU's")
+    profile_window("lightglue scores N=256", lambda: m.scores(*args),
+                   calls=5)
+    t_phase = stage_done("7c (w_lightglue)", t_phase)
+
+    # 7d. CoTracker at the shipped configuration.
+    cfg = shipped_cotracker_config()
+    tracker = CoTracker(cfg, device=dev)
+    tracker.load_state_dict(load_cotracker_npz(weights_path(
+        "cotracker.npz")))
+    tracker_cpu = CoTracker(cfg, device="cpu")
+    tracker_cpu.load_state_dict(tracker.state_dict())
+    for t, h, w, nq in COT_CLIPS:
+        label = f"cotracker {t} frames {w}x{h} {nq} queries"
+        video, queries = cotracker_clip(t, h, w, nq)
+        video_d = torch.from_numpy(video).to(dev)
+        queries_d = torch.from_numpy(queries).to(dev)
+        tracks, vis = tracker(video_d, queries_d)
+        want, want_vis, want_iters = tracker_cpu(video, queries,
+                                                 return_all_iterations=True)
+        start = torch.from_numpy(queries)[None].expand(t, nq, 2)
+        step_err = 0.0
+        for k in range(cfg.iterations):
+            got, got_vis = tracker.refine_step(video_d, queries_d,
+                                               start.to(dev))
+            step_err = max(step_err, float((got.cpu() - want_iters[k])
+                                           .abs().max()))
+            start = want_iters[k]
+        vis_err = float((got_vis.cpu() - want_vis).abs().max())
+        check(step_err <= COT_TRACK_TOL and vis_err <= COT_VIS_TOL,
+              f"{label}: an iteration from the CPU's positions is "
+              f"{step_err} px / {vis_err} from the CPU's")
+        moved = torch.nextafter(video_d, torch.full_like(video_d, np.inf))
+        tracks2, vis2 = tracker(moved, queries_d)
+        spread = (float((tracks - tracks2).abs().max()),
+                  float((vis - vis2).abs().max()))
+        whole = (float((tracks.cpu() - want).abs().max()),
+                 float((vis.cpu() - want_vis).abs().max()))
+        check(whole[0] <= max(COT_TRACK_TOL, 2 * spread[0])
+              and whole[1] <= max(COT_VIS_TOL, 2 * spread[1]),
+              f"{label}: the whole run is {whole} from the CPU's, the "
+              f"card's own spread {spread}")
+        true = (torch.from_numpy(queries)[None]
+                + torch.arange(t)[:, None, None] * torch.tensor(COT_STEP))
+        inside = ((true >= 0) & (true <= torch.tensor([w - 1, h - 1]))
+                  ).all(-1)
+        err = (tracks.cpu() - true).norm(dim=-1)[inside].mean()
+        still = (torch.from_numpy(queries)[None] - true).norm(
+            dim=-1)[inside].mean()
+        ms = cuda_ms(lambda: tracker(video_d, queries_d), repeats=10)
+        path_line(label, ms, card,
+                  f"; each iteration within {step_err:.3g} px (vis "
+                  f"{vis_err:.3g}) of the CPU's from its positions, the "
+                  f"whole run {whole[0]:.3g} px / {whole[1]:.3g} (card's "
+                  f"own one-ulp spread {spread[0]:.3g} / {spread[1]:.3g}); "
+                  f"mean error to the true motion {float(err):.4f} px "
+                  f"(zero motion {float(still):.4f})", repeats=10)
+        profile_window(label, lambda: tracker(video_d, queries_d), calls=2)
+    stage_done("7d (CoTracker)", t_phase)
 
 
 def main() -> int:
@@ -1725,6 +1948,7 @@ def main() -> int:
 
     kernels.append(raft_phases(dev, card))
     slice_paths(dev, card, frames)
+    model_paths(dev, card)
 
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           "a kernel of the paths was not launched on its main path")

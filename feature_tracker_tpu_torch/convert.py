@@ -1,7 +1,8 @@
 """Carry state across from the JAX package, without importing it.
 
-The trackers and matchers have no learned weights, so what crosses is
-options, a tracker's warp predictions and the front end's track state:
+The trackers and classical matchers have no learned weights, so what
+crosses for them is options, a tracker's warp predictions and the front
+end's track state:
 
   opts = options_from_jax(jax_front_end.cfg)        # FrontEndConfig
   tracker = tracker_from_jax(jax_front_end.tracker, device="cuda")
@@ -11,7 +12,10 @@ options, a tracker's warp predictions and the front end's track state:
   flow = tracker_from_jax(jax_dense_flow, device="cuda")  # DenseOpticalFlow
   matcher_opts = options_from_jax(jax_matcher_options)     # MatcherOptions
 
-RAFT's weights cross as a Flax variables tree of numpy arrays:
+The neural models' weights cross as a Flax variables tree of numpy
+arrays, one converter per model (``raft_state_from_jax``,
+``superpoint_state_from_jax``, ``disk_state_from_jax``,
+``lightglue_state_from_jax``, ``cotracker_state_from_jax``):
 
   model = Raft(options_from_jax(jax_cfg), device="cuda")
   model.load_state_dict(raft_state_from_jax(variables))
@@ -36,7 +40,15 @@ from feature_tracker_tpu_torch.core.config import (
     PyramidOptions,
 )
 from feature_tracker_tpu_torch.match.matcher import MatcherOptions
+from feature_tracker_tpu_torch.match.nn_matcher import (
+    NNMatcherModelType,
+    NNMatcherOptions,
+)
+from feature_tracker_tpu_torch.models.cotracker import CoTrackerConfig
+from feature_tracker_tpu_torch.models.disk import DiskConfig
+from feature_tracker_tpu_torch.models.lightglue import LightGlueConfig
 from feature_tracker_tpu_torch.models.raft import RaftConfig
+from feature_tracker_tpu_torch.models.superpoint import SuperPointConfig
 from feature_tracker_tpu_torch.pipeline import FrontEndConfig
 from feature_tracker_tpu_torch.trackers.dense import (
     DenseFlowOptions,
@@ -56,16 +68,20 @@ from feature_tracker_tpu_torch.trackers.klt import (
 _PORT_CONFIGS = {cls.__name__: cls for cls in
                  (KltOptions, HarrisOptions, PyramidOptions, FrontEndConfig,
                   RaftConfig, MatcherOptions, DirectMethodOptions,
-                  DenseFlowOptions)}
-_PORT_ENUMS = {cls.__name__: cls for cls in (KltMethod, DirectMethodMode)}
+                  DenseFlowOptions, SuperPointConfig, DiskConfig,
+                  LightGlueConfig, NNMatcherOptions, CoTrackerConfig)}
+_PORT_ENUMS = {cls.__name__: cls for cls in (KltMethod, DirectMethodMode,
+                                             NNMatcherModelType)}
 
 
 def options_from_jax(obj):
     """The port's counterpart of a JAX ``KltOptions``, ``HarrisOptions``,
     ``PyramidOptions``, ``FrontEndConfig``, ``RaftConfig``,
-    ``MatcherOptions``, ``DirectMethodOptions`` or ``DenseFlowOptions``
-    (nested configs included), built field by field; ``KltMethod`` and
-    ``DirectMethodMode`` cross by their ``.value``, a float dtype by its
+    ``MatcherOptions``, ``DirectMethodOptions``, ``DenseFlowOptions``,
+    ``SuperPointConfig``, ``DiskConfig``, ``LightGlueConfig``,
+    ``NNMatcherOptions`` or ``CoTrackerConfig`` (nested configs included),
+    built field by field; ``KltMethod``, ``DirectMethodMode`` and
+    ``NNMatcherModelType`` cross by their ``.value``, a float dtype by its
     name."""
     if isinstance(obj, enum.Enum):
         if type(obj).__name__ not in _PORT_ENUMS:
@@ -147,35 +163,88 @@ def flax_leaf_paths(tree, prefix=()):
             for pair in flax_leaf_paths(tree[key], prefix + (key,))]
 
 
-def raft_leaves_from_jax(variables):
+def _torch_layout(arr, path, where):
+    """A Flax leaf in the layout of its torch parameter: convolution
+    kernels HWIO -> OIHW, ``Dense`` kernels ``[in, out]`` -> ``[out, in]``,
+    attention ``DenseGeneral`` kernels ``[D, H, Dh]`` -> ``[H*Dh, D]`` (and
+    the output's ``[H, Dh, D]`` -> ``[D, H*Dh]``), their ``[H, Dh]`` biases
+    flattened."""
+    if path[-1] == "kernel":
+        if arr.ndim == 4:
+            return arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 2:
+            return arr.T
+        if arr.ndim == 3 and path[-2] == "out":
+            return arr.reshape(-1, arr.shape[-1]).T
+        if arr.ndim == 3:
+            return arr.reshape(arr.shape[0], -1).T
+        raise ValueError(f"leaf {where}: kernel of shape {arr.shape}, "
+                         "expected 2, 3 or 4 axes")
+    if path[-1] == "bias" and arr.ndim == 2:
+        return arr.reshape(-1)
+    return arr
+
+
+def flax_leaves_from_jax(variables, model: str = "Flax"):
     """``(leaf path, state_dict key, tensor)`` for every leaf of a Flax
-    ``Raft`` variables tree; see :func:`raft_state_from_jax`."""
+    variables tree of one of the port's models (``model`` names it in
+    errors); see :func:`flax_state_from_jax`."""
     for path, leaf in flax_leaf_paths(variables):
         where = "/".join(path)
         if (len(path) < 3 or path[0] not in ("params", "batch_stats")
                 or path[-1] not in _LEAF_NAMES):
-            raise ValueError(f"unexpected leaf {where} in RAFT variables")
-        arr = np.array(leaf, np.float32)     # a copy the tensor may own
-        if path[-1] == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"leaf {where}: kernel of shape "
-                                 f"{arr.shape}, expected [H, W, I, O]")
-            arr = arr.transpose(3, 2, 0, 1)
+            raise ValueError(f"unexpected leaf {where} in {model} variables")
+        arr = _torch_layout(np.array(leaf, np.float32), path, where)
         key = ".".join(path[1:-1]) + "." + _LEAF_NAMES[path[-1]]
-        yield where, key, torch.from_numpy(np.ascontiguousarray(arr))
+        # A copy the tensor may own.
+        yield where, key, torch.from_numpy(np.ascontiguousarray(arr).copy())
 
 
-def raft_state_from_jax(variables) -> dict:
-    """A Flax ``Raft`` variables tree (``{"params": ..., "batch_stats":
-    ...}``, nested mappings of arrays) as the ``state_dict`` of the port's
-    ``Raft``: a leaf's path under its collection is its key, convolution
-    kernels go from HWIO to OIHW, ``scale`` / ``mean`` / ``var`` become
+def flax_state_from_jax(variables, model: str = "Flax") -> dict:
+    """A Flax variables tree (``{"params": ..., "batch_stats": ...}``,
+    nested mappings of arrays) as the ``state_dict`` of the port's model:
+    a leaf's path under its collection is its key, kernels take torch's
+    layout (:func:`_torch_layout`), ``scale`` / ``mean`` / ``var`` become
     ``weight`` / ``running_mean`` / ``running_var``, and every batch norm
     gets a zero ``num_batches_tracked``."""
     state = {}
-    for _, key, tensor in raft_leaves_from_jax(variables):
+    for _, key, tensor in flax_leaves_from_jax(variables, model):
         state[key] = tensor
         if key.endswith(".running_mean"):
             state[key[:-len("running_mean")] + "num_batches_tracked"] = (
                 torch.zeros((), dtype=torch.long))
     return state
+
+
+def raft_state_from_jax(variables) -> dict:
+    """A Flax ``Raft`` variables tree as the ``state_dict`` of the port's
+    ``Raft`` (:func:`flax_state_from_jax`)."""
+    return flax_state_from_jax(variables, "RAFT")
+
+
+def superpoint_state_from_jax(variables) -> dict:
+    """A Flax ``SuperPoint`` variables tree as the ``state_dict`` of the
+    port's ``SuperPoint``; ``Conv_{i}`` / ``BatchNorm_{i}`` keep their
+    numbers (``Conv_10`` is the descriptor head's 3x3, not the eleventh in
+    the tree's sorted order)."""
+    return flax_state_from_jax(variables, "SuperPoint")
+
+
+def disk_state_from_jax(variables) -> dict:
+    """A Flax ``Disk`` variables tree as the ``state_dict`` of the port's
+    ``Disk`` (``Conv_14`` the 1x1 head)."""
+    return flax_state_from_jax(variables, "DISK")
+
+
+def lightglue_state_from_jax(variables) -> dict:
+    """A Flax ``LightGlue`` variables tree as the ``state_dict`` of the
+    port's ``LightGlue`` (``Dense`` kernels transposed)."""
+    return flax_state_from_jax(variables, "LightGlue")
+
+
+def cotracker_state_from_jax(variables) -> dict:
+    """A Flax ``CoTracker`` variables tree as the ``state_dict`` of the
+    port's ``CoTracker``: the attention's ``DenseGeneral`` kernels
+    ``[D, H, Dh]`` / ``[H, Dh, D]`` as ``[H*Dh, D]`` / ``[D, H*Dh]``
+    weights."""
+    return flax_state_from_jax(variables, "CoTracker")

@@ -1,0 +1,225 @@
+"""SuperPoint detector + descriptor, inference only — the counterpart of
+``feature_tracker_tpu/models/superpoint.py``.
+
+ - shared VGG-style encoder: [64,64]-pool-[64,64]-pool-[128,128]-pool-
+   [128,128] -> H/8 x W/8, each convolution followed by batch
+   normalisation (running statistics) and ReLU
+ - detector head: conv3x3(256) -> conv1x1(65); softmax over the 65 channels
+   (64 cell pixels + dustbin), dustbin dropped, depth-to-space to a full
+   resolution heatmap
+ - descriptor head: conv3x3(256) -> conv1x1(D); bilinear sampling at
+   keypoints + L2 normalization
+ - keypoints: 3x3 local max + response threshold + top-K (ties to the lower
+   flat index, as ``jax.lax.top_k``) with greedy min-distance suppression.
+
+Images and maps are ``[B, H, W, C]`` as in the Flax model. Submodules carry
+the Flax model's automatic names in call order (``Conv_0`` .. ``Conv_7``
+and ``BatchNorm_0`` .. ``BatchNorm_7`` the encoder, ``Conv_8`` /
+``BatchNorm_8`` / ``Conv_9`` the detector head, ``Conv_10`` /
+``BatchNorm_9`` / ``Conv_11`` the descriptor head), so a weight file's leaf
+path is its ``state_dict`` key (``convert.py::superpoint_state_from_jax``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from feature_tracker_tpu_torch.core.config import HarrisOptions
+from feature_tracker_tpu_torch.core.device import resolve_device
+from feature_tracker_tpu_torch.models.layers import divide, seeded_init
+from feature_tracker_tpu_torch.models.raft import BatchNorm, Conv, full_float32
+from feature_tracker_tpu_torch.ops import detect as _detect
+
+
+@dataclasses.dataclass(frozen=True)
+class SuperPointConfig:
+    descriptor_dim: int = 256
+    dtype: torch.dtype = torch.float32
+
+
+_ENCODER = (64, 64, 64, 64, 128, 128, 128, 128)
+
+
+class SuperPoint(nn.Module):
+    """``forward(image)``: image ``[B, H, W, 1]`` in 0..255. Returns
+    (heatmap ``[B, H, W]``, dense descriptors ``[B, H/8, W/8, D]``,
+    unnormalized). Runs on ``device`` (default ``"cuda"``; raises without a
+    GPU unless ``device="cpu"``) in ``eval()`` mode."""
+
+    def __init__(self, cfg: SuperPointConfig = SuperPointConfig(),
+                 device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        dt = cfg.dtype
+        widths = (1,) + _ENCODER
+        for i in range(len(_ENCODER)):
+            setattr(self, f"Conv_{i}",
+                    Conv(widths[i], widths[i + 1], 3, 1, dt))
+            setattr(self, f"BatchNorm_{i}", BatchNorm(widths[i + 1]))
+        self.Conv_8 = Conv(128, 256, 3, 1, dt)
+        self.BatchNorm_8 = BatchNorm(256)
+        self.Conv_9 = Conv(256, 65, 1, 1, torch.float32)
+        self.Conv_10 = Conv(128, 256, 3, 1, dt)
+        self.BatchNorm_9 = BatchNorm(256)
+        self.Conv_11 = Conv(256, cfg.descriptor_dim, 1, 1, torch.float32)
+        self.to(self.device).to(memory_format=torch.channels_last)
+        self.eval()
+
+    def _block(self, x, conv: int, norm: int):
+        x = getattr(self, f"Conv_{conv}")(x)
+        return F.relu(getattr(self, f"BatchNorm_{norm}")(x))
+
+    def forward(self, image, train: bool = False):
+        if train:
+            raise NotImplementedError(
+                "SuperPoint's training mode (batch statistics) is not "
+                "ported; the port runs inference on the running statistics")
+        with torch.inference_mode(), full_float32():
+            x = torch.as_tensor(image, dtype=torch.float32,
+                                device=self.device)
+            x = divide(x, 255.0).to(self.cfg.dtype)
+            for i in range(len(_ENCODER)):
+                x = self._block(x, i, i)
+                if i in (1, 3, 5):
+                    x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(
+                        0, 2, 3, 1)
+
+            det = self.Conv_9(self._block(x, 8, 8))
+            prob = torch.softmax(det, dim=-1)[..., :64]   # drop dustbin
+            b, hc, wc, _ = prob.shape
+            heat = prob.reshape(b, hc, wc, 8, 8).permute(0, 1, 3, 2, 4)
+            heat = heat.reshape(b, hc * 8, wc * 8)
+
+            desc = self.Conv_11(self._block(x, 10, 9))
+            return heat, desc
+
+
+def sample_descriptors(desc_map, uv, stride: int = 8):
+    """Bilinear-sample L2-normalized descriptors at pixel positions.
+
+    Args:
+      desc_map: ``[Hc, Wc, D]`` dense descriptors at 1/stride resolution.
+      uv: ``[K, 2]`` full-resolution (x, y).
+    """
+    pos = divide(uv + 0.5, float(stride)) - 0.5     # cell-center aligned
+    return _bilinear_normalized(desc_map, pos)
+
+
+def _bilinear_normalized(desc_map, pos):
+    """Bilinear sample of ``desc_map [h, w, D]`` at ``pos [K, 2]`` (x, y),
+    clamped to the map, then L2-normalized (the JAX expression order)."""
+    h, w, _ = desc_map.shape
+    x = torch.clamp(pos[:, 0], 0.0, w - 1.0)
+    y = torch.clamp(pos[:, 1], 0.0, h - 1.0)
+    x0 = torch.clamp(torch.floor(x).long(), 0, w - 2)
+    y0 = torch.clamp(torch.floor(y).long(), 0, h - 2)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+    d = ((1 - fy) * (1 - fx) * desc_map[y0, x0]
+         + (1 - fy) * fx * desc_map[y0, x0 + 1]
+         + fy * (1 - fx) * desc_map[y0 + 1, x0]
+         + fy * fx * desc_map[y0 + 1, x0 + 1])
+    norm = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    return d / torch.clamp(norm, min=1e-12)
+
+
+def select_keypoints(heatmap, max_num: int, min_response,
+                     min_distance: int = 4):
+    """Heatmap ``[H, W]`` -> (uv ``[max_num, 2]``, num) with 3x3 NMS,
+    threshold, top-K and greedy radius suppression (mirrors the classic
+    detector's contract; padded entries are (-1, -1), ``num`` an int32
+    0-dim tensor)."""
+    opts = HarrisOptions(min_feature_distance=min_distance,
+                         min_valid_response=0.0, max_candidates=4096)
+    dev = heatmap.device
+    h, w = heatmap.shape
+    # max_pool2d pads with -inf, as reduce_window with a -inf init does.
+    local_max = F.max_pool2d(heatmap[None, None], 3, stride=1,
+                             padding=1)[0, 0]
+    rows = torch.arange(h, device=dev)[:, None]
+    cols = torch.arange(w, device=dev)[None, :]
+    border = 4
+    inb = ((rows >= border) & (rows < h - border)
+           & (cols >= border) & (cols < w - border))
+    cand = (heatmap >= local_max) & (heatmap > min_response) & inb
+    scores = torch.where(cand, heatmap, torch.full_like(heatmap, -torch.inf))
+    k = min(opts.max_candidates, h * w)
+    # lax.top_k's order: descending, ties to the lower index.
+    top_scores, flat_idx = torch.sort(scores.reshape(-1), descending=True,
+                                      stable=True)
+    top_scores, flat_idx = top_scores[:k], flat_idx[:k]
+    # Valid candidates form a prefix; the greedy pass needs only that.
+    n_valid = int((top_scores > -torch.inf).sum())
+    cy = (flat_idx[:n_valid] // w).to(torch.float32)
+    cx = (flat_idx[:n_valid] % w).to(torch.float32)
+    d2 = (cx[:, None] - cx[None, :]) ** 2 + (cy[:, None] - cy[None, :]) ** 2
+    conflict = d2 < float(min_distance) ** 2
+    keep = _detect.greedy_suppression(
+        torch.ones(n_valid, dtype=torch.bool, device=dev), conflict)
+    sel = torch.nonzero(keep).reshape(-1)[:max_num]
+    uv = torch.full((max_num, 2), -1.0, dtype=torch.float32, device=dev)
+    uv[:sel.shape[0], 0] = cx[sel]
+    uv[:sel.shape[0], 1] = cy[sel]
+    num = torch.tensor(sel.shape[0], dtype=torch.int32, device=dev)
+    return uv, num
+
+
+class SuperPointDetector:
+    """Detect-and-describe front end (NNFeaturePointDetector equivalent).
+
+    ``variables`` is the ``state_dict`` of a ``SuperPoint`` (a weight file
+    through ``utils/weights.py::load_superpoint_npz``, or ``init_random``);
+    the model runs on ``device`` (default ``"cuda"``)."""
+
+    def __init__(self, variables, cfg: SuperPointConfig = SuperPointConfig(),
+                 min_response: float = 0.005, min_feature_distance: int = 4,
+                 max_features: int = 300, device="cuda"):
+        self.model = SuperPoint(cfg, device=device)
+        self.model.load_state_dict(variables)
+        self.variables = self.model.state_dict()
+        self.min_response = min_response
+        self.min_feature_distance = min_feature_distance
+        self.max_features = max_features
+
+    @classmethod
+    def init_random(cls, rng, image_shape=(1, 120, 160, 1), **kw):
+        """Randomly initialised weights drawn from ``rng`` (an int seed or a
+        ``torch.Generator``). ``image_shape`` is accepted for the JAX
+        signature; a torch module needs no example input."""
+        del image_shape
+        with seeded_init(rng):
+            model = SuperPoint(kw.get("cfg", SuperPointConfig()),
+                               device="cpu")
+        return cls(model.state_dict(), **kw)
+
+    @classmethod
+    def from_file(cls, path: str | None = None, **kw):
+        """Pretrained weights (``weights/superpoint.npz``), or None when the
+        file is absent."""
+        from feature_tracker_tpu_torch.utils.weights import (
+            load_superpoint_npz,
+            weights_path,
+        )
+        path = path or weights_path("superpoint.npz")
+        if not os.path.exists(path):
+            return None
+        cfg = kw.get("cfg", SuperPointConfig())
+        return cls(load_superpoint_npz(path, cfg), **kw)
+
+    def detect(self, image):
+        """image: ``[H, W]`` 0..255. Returns (uv ``[K,2]``, descriptors
+        ``[K,D]``, num)."""
+        with torch.inference_mode(), full_float32():
+            img = torch.as_tensor(image, dtype=torch.float32,
+                                  device=self.model.device)
+            heat, desc = self.model(img[None, :, :, None])
+            uv, num = select_keypoints(heat[0], self.max_features,
+                                       self.min_response,
+                                       self.min_feature_distance)
+            return uv, sample_descriptors(desc[0], uv), num

@@ -14,14 +14,15 @@ from __future__ import annotations
 
 import ast
 import collections
+import json
 import os
 
 import numpy as np
 import torch
 
 from feature_tracker_tpu_torch.convert import (
-    raft_leaves_from_jax,
-    raft_state_from_jax,
+    flax_leaves_from_jax,
+    flax_state_from_jax,
 )
 
 WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(
@@ -181,6 +182,29 @@ def load_npz_tree(path: str):
     return tree
 
 
+def _checked_state(path: str, model: str, expected) -> dict:
+    """The ``state_dict`` a weight file holds, every leaf held against the
+    model's own ``expected`` state: a missing leaf, an extra leaf or a
+    wrong shape raises a ValueError naming the leaf."""
+    tree = load_npz_tree(path)
+    leaf_of = {key: where for where, key, _ in
+               flax_leaves_from_jax(tree, model)}
+    state = flax_state_from_jax(tree, model)
+    for key, tensor in state.items():
+        where = leaf_of.get(key, key)
+        if key not in expected:
+            raise ValueError(f"{path}: leaf {where} has no place in the "
+                             f"{model} model (no {key})")
+        if tensor.shape != expected[key].shape:
+            raise ValueError(
+                f"{path}: leaf {where} has shape {tuple(tensor.shape)}, "
+                f"the model expects {tuple(expected[key].shape)} for {key}")
+    for key in expected:
+        if key not in state:
+            raise ValueError(f"{path}: no leaf for the {model} model's {key}")
+    return state
+
+
 def load_raft_npz(path: str, cfg) -> dict:
     """``state_dict`` of ``Raft(cfg)`` from a RAFT weight file
     (``weights/raft.npz`` for the full configuration, ``raft_small.npz`` for
@@ -188,20 +212,61 @@ def load_raft_npz(path: str, cfg) -> dict:
     a file of another architecture fails here, naming the leaf."""
     from feature_tracker_tpu_torch.models.raft import Raft
 
-    tree = load_npz_tree(path)
-    leaf_of = {key: where for where, key, _ in raft_leaves_from_jax(tree)}
-    state = raft_state_from_jax(tree)
-    expected = Raft(cfg, device="cpu").state_dict()
-    for key, tensor in state.items():
-        where = leaf_of.get(key, key)
-        if key not in expected:
-            raise ValueError(f"{path}: leaf {where} has no place in the "
-                             f"model (no {key})")
-        if tensor.shape != expected[key].shape:
-            raise ValueError(
-                f"{path}: leaf {where} has shape {tuple(tensor.shape)}, "
-                f"the model expects {tuple(expected[key].shape)} for {key}")
-    for key in expected:
-        if key not in state:
-            raise ValueError(f"{path}: no leaf for the model's {key}")
-    return state
+    return _checked_state(path, "RAFT",
+                          Raft(cfg, device="cpu").state_dict())
+
+
+def load_superpoint_npz(path: str, cfg=None) -> dict:
+    """``state_dict`` of ``SuperPoint(cfg)`` (default config) from
+    ``weights/superpoint.npz``, each leaf checked as in
+    :func:`load_raft_npz`."""
+    from feature_tracker_tpu_torch.models.superpoint import (
+        SuperPoint,
+        SuperPointConfig,
+    )
+
+    model = SuperPoint(cfg or SuperPointConfig(), device="cpu")
+    return _checked_state(path, "SuperPoint", model.state_dict())
+
+
+def load_disk_npz(path: str, cfg=None) -> dict:
+    """``state_dict`` of ``Disk(cfg)`` (default config) from
+    ``weights/disk.npz``, each leaf checked."""
+    from feature_tracker_tpu_torch.models.disk import Disk, DiskConfig
+
+    return _checked_state(path, "DISK",
+                          Disk(cfg or DiskConfig(), device="cpu").state_dict())
+
+
+def load_lightglue_npz(path: str, cfg=None) -> dict:
+    """``state_dict`` of ``LightGlue(cfg)`` (default: the SuperPoint
+    variant, 256-d descriptors, depth 9) from
+    ``weights/lightglue_superpoint.npz`` or, with
+    ``LightGlueConfig(descriptor_dim=128)``, ``lightglue_disk.npz``; each
+    leaf checked."""
+    from feature_tracker_tpu_torch.models.lightglue import (
+        LightGlue,
+        LightGlueConfig,
+    )
+
+    model = LightGlue(cfg or LightGlueConfig(), device="cpu")
+    return _checked_state(path, "LightGlue", model.state_dict())
+
+
+def shipped_cotracker_config():
+    """The ``CoTrackerConfig`` that ``weights/cotracker.npz`` was trained
+    at, from ``weights/metrics.json["cotracker"]["config"]``."""
+    from feature_tracker_tpu_torch.models.cotracker import CoTrackerConfig
+
+    with open(weights_path("metrics.json")) as fh:
+        return CoTrackerConfig(**json.load(fh)["cotracker"]["config"])
+
+
+def load_cotracker_npz(path: str, cfg=None) -> dict:
+    """``state_dict`` of ``CoTracker(cfg)`` (default: the shipped config,
+    :func:`shipped_cotracker_config`) from ``weights/cotracker.npz``; each
+    leaf checked."""
+    from feature_tracker_tpu_torch.models.cotracker import CoTracker
+
+    model = CoTracker(cfg or shipped_cotracker_config(), device="cpu")
+    return _checked_state(path, "CoTracker", model.state_dict())

@@ -40,6 +40,7 @@ from feature_tracker_tpu_torch.trackers.klt.lssd import (
 from chip_smoke import (
     boundary_locations,
     brief_pipeline,
+    cotracker_clip,
     lookup_inputs,
     render_plane,
     scattered_locations,
@@ -890,3 +891,121 @@ def test_farneback_card_matches_cpu_in_distribution(card):
         build_pyramid(cur, 4, quantize=False, device="cpu"))
     d = (got.cpu() - want).abs()[:, 20:-20, 20:-20].numpy()
     assert d.mean() <= 1e-3 and np.percentile(d, 99) <= 5e-3
+
+
+# The neural models (no kernel of their own either): on the card they run
+# the same torch operations as on the CPU, on the shipped weights.
+
+@pytest.mark.parametrize("kind", ["superpoint", "disk"])
+def test_detector_card_matches_cpu(card, kind):
+    """uv and counts equal, descriptors within 1e-5."""
+    from feature_tracker_tpu_torch.models.disk import DiskDetector
+    from feature_tracker_tpu_torch.models.superpoint import (
+        SuperPointDetector,
+    )
+
+    cls = SuperPointDetector if kind == "superpoint" else DiskDetector
+    det = cls.from_file(device="cuda")
+    det_cpu = cls(det.variables, device="cpu")
+    img, _ = translated_pair(h=120, w=150)
+    uv, desc, num = det.detect(img)
+    want_uv, want_desc, want_num = det_cpu.detect(img)
+    assert uv.is_cuda and int(num) == int(want_num) > 0
+    assert torch.equal(uv.cpu(), want_uv)
+    assert (desc.cpu() - want_desc).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("variant", range(4))
+def test_nn_matcher_card_matches_cpu(card, variant):
+    """LightGlue's valid scores within 1e-3 and masked ones NEG_INF, then
+    matched uv and statuses equal, for each of the four variants."""
+    from feature_tracker_tpu_torch.match.nn_matcher import (
+        NNFeatureMatcher,
+        NNMatcherModelType,
+        NNMatcherOptions,
+    )
+    from feature_tracker_tpu_torch.models.lightglue import NEG_INF
+
+    opts = NNMatcherOptions(model_type=NNMatcherModelType(variant))
+    m = NNFeatureMatcher.from_file(opts, device="cuda")
+    m_cpu = NNFeatureMatcher(opts, variables=m.variables, device="cpu")
+    dim = m.cfg.descriptor_dim
+    rng = np.random.default_rng(40 + variant)
+    k0 = rng.uniform(0, 480, (64, 2)).astype(np.float32)
+    d0 = rng.normal(0, 1, (64, dim)).astype(np.float32)
+    d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
+    k1 = k0 + np.float32([7.0, -4.0])
+    d1 = d0 + rng.normal(0, 0.05, d0.shape).astype(np.float32)
+    m0, m1 = np.arange(64) < 56, np.arange(64) >= 8
+    args = [torch.from_numpy(a) for a in (k0, d0, k1, d1, m0, m1)]
+    got = m.scores(*[a.cuda() for a in args]).cpu()
+    want = m_cpu.scores(*args)
+    pair = torch.from_numpy(m0[:, None] & m1[None, :])
+    assert (got - want).abs()[pair].max() <= 1e-3
+    assert (got[~pair] == NEG_INF).all()
+    order = [1, 3, 0, 2, 4, 5]                  # descriptors first
+    uv, st = m.match(*[args[i].cuda() for i in order])
+    want_uv, want_st = m_cpu.match(*[args[i] for i in order])
+    assert torch.equal(st.cpu(), want_st) and torch.equal(uv.cpu(), want_uv)
+    assert (want_st == 1).sum() > 20
+
+
+@pytest.mark.parametrize("max_matches", [300, 3])
+def test_fused_match_list_ties_on_card_equal_cpu(card, max_matches):
+    """Planted ties (equal row maxima, column maxima and match scores) and
+    -inf / NEG_INF rows resolve on the card as on the CPU."""
+    from feature_tracker_tpu_torch.models.lightglue import (
+        NEG_INF,
+        fused_match_list,
+        mutual_argmax_matches,
+    )
+
+    rng = np.random.default_rng(41)
+    s = np.round(rng.uniform(-6, 0, (40, 33)), 1).astype(np.float32)
+    s[1, 3] = s[1, 5] = 0.5
+    s[4, 7] = s[6, 7] = 0.7
+    s[8, 0] = s[9, 1] = 0.9
+    s[2, :] = -np.inf
+    s[10, :] = NEG_INF
+    s[:, 8] = -np.inf
+    scores = torch.from_numpy(s)
+    idx = mutual_argmax_matches(scores.cuda(), -3.0)
+    assert torch.equal(idx.cpu(), mutual_argmax_matches(scores, -3.0))
+    pairs, sc = fused_match_list(scores.cuda(), -3.0, max_matches)
+    want_pairs, want_sc = fused_match_list(scores, -3.0, max_matches)
+    assert torch.equal(pairs.cpu(), want_pairs)
+    assert torch.equal(sc.cpu(), want_sc)
+
+
+def test_cotracker_card_matches_cpu(card):
+    """Shipped weights, 8 frames of 96x96, 24 queries: each iteration from
+    the CPU's positions within 1e-3 px and 1e-4 in the visibility logits;
+    the whole run within those or twice the card's own spread under a
+    one-ulp change of the video (models/cotracker.py)."""
+    from feature_tracker_tpu_torch.models.cotracker import CoTracker
+    from feature_tracker_tpu_torch.utils.weights import (
+        load_cotracker_npz,
+        shipped_cotracker_config,
+        weights_path,
+    )
+
+    cfg = shipped_cotracker_config()
+    gpu = CoTracker(cfg)
+    gpu.load_state_dict(load_cotracker_npz(weights_path("cotracker.npz")))
+    cpu = CoTracker(cfg, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    video, queries = cotracker_clip(8, 96, 96, 24)
+    v, q = torch.from_numpy(video).cuda(), torch.from_numpy(queries).cuda()
+    tracks, vis = gpu(v, q)
+    want, want_vis, want_iters = cpu(video, queries,
+                                     return_all_iterations=True)
+    start = torch.from_numpy(queries)[None].expand(8, 24, 2)
+    for k in range(cfg.iterations):
+        step, step_vis = gpu.refine_step(v, q, start.cuda())
+        assert (step.cpu() - want_iters[k]).abs().max() <= 1e-3
+        start = want_iters[k]
+    assert (step_vis.cpu() - want_vis).abs().max() <= 1e-4
+    tracks2, vis2 = gpu(torch.nextafter(v, torch.full_like(v, np.inf)), q)
+    spread = (tracks - tracks2).abs().max(), (vis - vis2).abs().max()
+    assert (tracks.cpu() - want).abs().max() <= max(1e-3, 2 * spread[0])
+    assert (vis.cpu() - want_vis).abs().max() <= max(1e-4, 2 * spread[1])

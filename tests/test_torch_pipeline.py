@@ -250,5 +250,7 @@ def test_the_name_guard_covers_the_ported_modules():
             "runtime/__init__.py", "runtime/native.py", "runtime/stream.py",
             "runtime/cpu_baseline.py", "utils/__init__.py", "utils/log.py",
             "utils/timer.py", "utils/profiling.py",
-            "utils/viz.py"} <= set(COUNTERPARTS)
+            "utils/viz.py", "models/superpoint.py", "models/disk.py",
+            "models/lightglue.py", "match/nn_matcher.py",
+            "models/cotracker.py"} <= set(COUNTERPARTS)
     assert set(ALLOWED_MISSING) <= set(COUNTERPARTS)
