@@ -85,8 +85,30 @@ Phases (any failed check raises, so the exit code is non-zero):
      iteration from the CPU's positions within 1e-3 px and 1e-3 in the
      visibility logits; the whole run within those or twice the card's
      own spread under a one-ulp change of the video).
-Then one JSON line with the kernels of the paths, the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+  8. The parallel layer (``feature_tracker_tpu_torch/parallel``) and the
+     SLAM back end, each sub-phase timed: (a) ``make_mesh()`` in this
+     process (one rank, its own NCCL group): ``track_klt_sharded`` with
+     ``BasicKlt`` FAST, ``AffineKlt`` and ``LssdKlt`` at the headline shape,
+     bit-equal to the unsharded trackers at one kernel launch per call and
+     timed against them, and ``track_direct_sharded`` at the KITTI plane in
+     all three modes, bit-equal to ``DirectMethod``; (b) two ranks spawned
+     on the one card, joined by gloo over a FileStore: the same sharded
+     trackers (uv and statuses bit-equal to one rank's), the direct method
+     (statuses equal, uv within 1e-3 px) and the landmark-sharded BA at the
+     launcher's problem (65536 landmarks, 4 views each, 8 poses, 10
+     iterations: JAX's sharded tolerances against one rank, and one reduced
+     camera system all-reduced per step); (c) that BA on the card against
+     the CPU, two card runs bit-equal, ms per Gauss-Newton iteration, the
+     device's idle share and ``measure_overhead_vs_landmarks`` up to 262144
+     landmarks; (d) ``demos/slam_demo.py``'s path on six rendered
+     KITTI-shaped frames: ``TrackingFrontEnd`` (one FAST launch per tracked
+     frame), landmarks from frame 0 at the plane's true depth,
+     ``SlidingWindowBa`` with the demo's settings, the direct method as a
+     cross-check; the camera positions near the truth and the direct
+     method's, the same path on the CPU giving the same tracks and BA.
+Then one JSON line with the kernels of the paths (kernels 1, 3 and 4 also
+with their launches on the sharded paths), the card's name and power limit,
+and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and outside a checkout of the
 repository (the port and its kernel sources are imported from beside this
@@ -162,6 +184,26 @@ LG_BENCH_N = 256                # bench.py's w_lightglue
 COT_CLIPS = ((8, 96, 96, 24), (24, 384, 512, 256))
 COT_STEP = (0.7, -0.4)
 COT_TRACK_TOL, COT_VIS_TOL = 1e-3, 1e-3
+# Phase 8: the parallel layer. The landmark-sharded BA at the launcher's
+# default problem (parallel/scaling.py::_make_problem: landmarks, views per
+# landmark, poses) and JAX's sharded tolerances (tests/test_parallel.py:
+# q 1e-4; t rtol/atol 1e-3; landmarks rtol 1e-3, atol 5e-3). The rms
+# history of two ranks is held to one rank's within 1e-4 relative, the
+# card's to the CPU's within 1e-3, or within twice the one-rank history's
+# own spread under a one-ulp change of its inputs where that is larger:
+# on this noise-free problem the history falls to ~1.5e-4 px, where a
+# one-ulp change of the observations moves it by up to ~6e-4 relative
+# (ROADMAP.md section 3).
+BA_L, BA_O, BA_P, BA_ITERS = 65536, 4, 8, 10
+BA_RMS_RANKS, BA_RMS_CPU = 1e-4, 1e-3
+BA_Q_TOL, BA_T_TOL, BA_LM_RTOL, BA_LM_ATOL = 1e-4, 1e-3, 1e-3, 5e-3
+SWEEP_L = (8192, 65536, 262144)
+# The SLAM back end (demos/slam_demo.py's path) on SLAM_FRAMES frames of the
+# KITTI plane: camera k at k * SLAM_STEP (m) turned k * SLAM_YAW (rad) about
+# y; the window and BA settings of the demo. Camera positions are held to
+# the truth and to the direct method's within SLAM_POS_TOL m.
+SLAM_FRAMES, SLAM_STEP, SLAM_YAW = 6, (0.01, -0.005, 0.02), 0.001
+SLAM_POS_TOL = 0.01
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -1532,6 +1574,363 @@ def model_paths(dev, card):
     stage_done("7d (CoTracker)", t_phase)
 
 
+def ba_spread(problem, opts, device):
+    """``bundle_adjust`` of ``problem`` on ``device`` (numpy outputs) and
+    the largest relative change of its rms history under a one-ulp change
+    of the observations or of the initial translations."""
+    from feature_tracker_tpu_torch.parallel import bundle_adjust
+
+    base = [x.cpu().numpy() for x in bundle_adjust(*problem, opts,
+                                                    device=device)]
+    spread = 0.0
+    for i in (4, 1):              # obs_uv, t_cw
+        moved = list(problem)
+        moved[i] = np.nextafter(problem[i], np.float32(np.inf))
+        rms = bundle_adjust(*moved, opts, device=device)[3].cpu().numpy()
+        spread = max(spread, float(np.abs(rms / base[3] - 1).max()))
+    return base, spread
+
+
+def ba_agree(label, got, want, rms_limit, spread):
+    """(q, t, landmarks, rms history) against another run's: JAX's sharded
+    tolerances, the rms history within ``rms_limit`` relative or twice the
+    one-ulp ``spread`` where that is larger."""
+    def excess(a, b, rtol, atol):
+        return float((np.abs(a - b) - atol - rtol * np.abs(b)).max())
+
+    rel = float(np.abs(got[3] / want[3] - 1).max())
+    dq, dt, dl = (float(np.abs(a - b).max()) for a, b in zip(got, want[:3]))
+    print(f"[compare] {label}: |dq| {dq:.3g} |dt| {dt:.3g} |dlandmark| "
+          f"{dl:.3g}; rms history {want[3][0]:.6g} -> {want[3][-1]:.6g} px, "
+          f"max relative difference {rel:.3g} (limit {rms_limit:g}, or "
+          f"twice the one-ulp spread {spread:.3g})")
+    check(excess(got[0], want[0], 0.0, BA_Q_TOL) <= 0
+          and excess(got[1], want[1], BA_T_TOL, BA_T_TOL) <= 0
+          and excess(got[2], want[2], BA_LM_RTOL, BA_LM_ATOL) <= 0,
+          f"{label}: poses or landmarks differ")
+    check(rel <= max(rms_limit, 2.0 * spread),
+          f"{label}: rms histories differ by {rel} relative")
+
+
+class SlamTexture:
+    """Phase 3's corner-rich texture at about one texture unit per pixel of
+    frame 0 (the corner density of real imagery at the front end's
+    thresholds) plus kitti_scene's smooth one (the coarse structure the
+    direct method's top levels need), each at 0.6 of its contrast."""
+
+    def __init__(self):
+        from synthetic import Texture
+
+        self.fine = Texture(0, n_waves=16, min_period=5.0, max_period=30.0)
+        self.coarse = Texture(11, min_period=8.0 / 0.45,
+                              max_period=80.0 / 0.45)
+
+    def eval(self, x, y):
+        return (0.6 * (self.fine.eval(x, y) + self.coarse.eval(x, y))
+                - 0.2 * 127.5)
+
+
+def slam_frames():
+    """SLAM_FRAMES views of a SlamTexture plane at depth PLANE_Z with
+    KITTI's shape and intrinsics, camera k at k * SLAM_STEP turned
+    k * SLAM_YAW about y; and the true camera positions [T, 3]."""
+    tex = SlamTexture()
+    tex_scale = KITTI_K4[0] / PLANE_Z
+    frames, centres = [], []
+    for k in range(SLAM_FRAMES):
+        p_wc = k * np.asarray(SLAM_STEP, np.float32)
+        frames.append(render_plane(tex, small_quat([0, 1, 0], k * SLAM_YAW),
+                                   p_wc, KITTI_H, KITTI_W, KITTI_K4, PLANE_Z,
+                                   tex_scale))
+        centres.append(p_wc)
+    return frames, np.stack(centres)
+
+
+def slam_back_end(frames, device):
+    """demos/slam_demo.py's path on ``device``: the front end over the
+    frames; landmarks from the frame-0 tracks at the plane's true depth;
+    every frame a keyframe at identity, each landmark observed where its
+    lane keeps its frame-0 id and is tracked; the window BA; and the direct
+    method's pose of every frame against frame 0 from the same landmarks.
+    Returns the front end's results, the window's state and rms history,
+    ms of ``optimize()`` and both estimators' camera positions."""
+    from feature_tracker_tpu_torch.core.geometry import quat_to_matrix
+    from feature_tracker_tpu_torch.core.status import TrackStatus
+    from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
+    from feature_tracker_tpu_torch.parallel import BaOptions
+    from feature_tracker_tpu_torch.parallel.window_ba import (
+        SlidingWindowBa,
+        WindowConfig,
+    )
+    from feature_tracker_tpu_torch.pipeline import (
+        FrontEndConfig,
+        TrackingFrontEnd,
+    )
+    from feature_tracker_tpu_torch.trackers.direct import DirectMethod
+
+    fe = TrackingFrontEnd(FrontEndConfig(), device=device)
+    results = [fe.process_frame(f) for f in frames]
+    first = results[0]
+    lanes = np.nonzero(first.track_ids >= 0)[0]
+    fx, fy, cx, cy = KITTI_K4
+    uv0 = first.uv[lanes]
+    p_w = np.stack([(uv0[:, 0] - cx) / fx * PLANE_Z,
+                    (uv0[:, 1] - cy) / fy * PLANE_Z,
+                    np.full(len(lanes), PLANE_Z)], -1).astype(np.float32)
+    k4 = np.asarray(KITTI_K4, np.float32)
+    window = SlidingWindowBa(
+        k4, WindowConfig(max_keyframes=len(frames), max_landmarks=512,
+                         obs_per_landmark=len(frames)),
+        BaOptions(max_iterations=20, landmark_prior=30.0, huber_px=2.0),
+        device=device)
+    slots = np.array([window.add_landmark(p) for p in p_w])
+    n_obs = 0
+    for res in results:
+        kf = window.add_keyframe([1, 0, 0, 0], [0, 0, 0])
+        seen = ((res.track_ids[lanes] == first.track_ids[lanes])
+                & (res.status[lanes] == int(TrackStatus.TRACKED)))
+        for slot, lane in zip(slots[seen], lanes[seen]):
+            window.add_observation(slot, kf, res.uv[lane])
+        n_obs += int(seen.sum())
+    t0 = time.perf_counter()
+    rms = window.optimize()                  # ends in device-to-host copies
+    optimize_ms = (time.perf_counter() - t0) * 1e3
+    rot = quat_to_matrix(torch.as_tensor(window.q_cw)).numpy()
+    cam_ba = -np.einsum("kji,kj->ki", rot, window.t_cw)       # -R^T t
+
+    solver = DirectMethod(device=device)
+    ref_pyr = build_pyramid(frames[0], KITTI_LEVELS, device=device)
+    q_rc = p_rc = None
+    cam_direct = [np.zeros(3, np.float32)]
+    for f in frames[1:]:
+        _, q_rc, p_rc, _ = solver.track(
+            ref_pyr, build_pyramid(f, KITTI_LEVELS, device=device), k4, p_w,
+            uv0, q_rc, p_rc)
+        cam_direct.append(p_rc.cpu().numpy())
+    return {"results": results, "landmarks_n": len(lanes), "n_obs": n_obs,
+            "rms": rms, "optimize_ms": optimize_ms,
+            "state": (window.q_cw, window.t_cw, window.landmarks, rms),
+            "cam_ba": cam_ba, "cam_direct": np.stack(cam_direct)}
+
+
+def parallel_paths(dev, card, rp, cp, uv, opts):
+    """Phase 8 (see the module docstring): the parallel layer and the SLAM
+    back end on the card. Returns each KLT kernel's launches on the
+    sharded paths."""
+    import functools
+    import tempfile
+
+    import torch.distributed as dist
+
+    from feature_tracker_tpu_torch.ops import cuda_klt, cuda_warp_klt
+    from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
+    from feature_tracker_tpu_torch.parallel import (
+        BaOptions,
+        ba_comm_report,
+        bundle_adjust,
+        make_mesh,
+        track_direct_sharded,
+        track_klt_sharded,
+    )
+    from feature_tracker_tpu_torch.parallel.ba import ba_step
+    from feature_tracker_tpu_torch.parallel.mesh import comm_stats
+    from feature_tracker_tpu_torch.parallel.multihost_ba import (
+        ba_case,
+        run_cases,
+        spawn,
+    )
+    from feature_tracker_tpu_torch.parallel.scaling import (
+        _make_problem,
+        measure_overhead_vs_landmarks,
+    )
+    from feature_tracker_tpu_torch.trackers.direct import (
+        DirectMethod,
+        DirectMethodMode,
+        DirectMethodOptions,
+    )
+    from feature_tracker_tpu_torch.trackers.klt import (
+        AffineKlt,
+        BasicKlt,
+        LssdKlt,
+    )
+
+    t_phase = time.perf_counter()
+    # 8a. One rank in this process, its own NCCL group.
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and mesh.size() == 1,
+          f"make_mesh() gave {mesh} over {dist.get_backend()}")
+    psum = ba_comm_report(BA_P, BA_L, BA_O, mesh)["psum_bytes"]
+    trackers = {
+        "klt_fast_pyramid": (BasicKlt(opts),
+                             cuda_klt.track_pyramid_fast_cuda),
+        "klt_affine_pyramid": (AffineKlt(opts),
+                               cuda_warp_klt.affine_track_pyramid_cuda),
+        "klt_lssd_pyramid": (LssdKlt(opts, False),
+                             cuda_warp_klt.lssd_track_pyramid_cuda)}
+    launches, single = {}, {}
+    for name, (tracker, wrapper) in trackers.items():
+        want = tracker.track(rp, cp, uv)
+        wrapper.launches = 0
+        got = track_klt_sharded(tracker, mesh, rp, cp, uv)
+        launches[name] = wrapper.launches
+        check(launches[name] == 1,
+              f"sharded {name}: {launches[name]} launches in one call")
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"sharded {name}: one rank differs from the unsharded tracker")
+        single[name] = [x.cpu().numpy() for x in want]
+        sharded_ms = cuda_ms(lambda: track_klt_sharded(tracker, mesh, rp, cp,
+                                                       uv))
+        plain_ms = cuda_ms(lambda: tracker.track(rp, cp, uv))
+        print(f"[parallel] 8a {name} sharded over one rank, 752x480 L=4 "
+              f"N={N}: bit-equal to the unsharded tracker, 1 launch; "
+              f"{sharded_ms:.4f} ms per call against {plain_ms:.4f} ms "
+              f"unsharded (CUDA events, median of {REPEATS}); card {card}")
+
+    q_true = small_quat([0, 1, 0], 0.01)
+    p_true = np.array([0.12, -0.06, 0.08], np.float32)
+    kref, kcur, kuv, kp = kitti_scene(q_true, p_true)
+    k4 = np.asarray(KITTI_K4, np.float32)
+    kpyr = (build_pyramid(kref, KITTI_LEVELS, device=dev),
+            build_pyramid(kcur, KITTI_LEVELS, device=dev))
+    direct_single = {}
+    for mode in DirectMethodMode:
+        solver = DirectMethod(DirectMethodOptions(method=mode), device=dev)
+        want = solver.track(*kpyr, k4, kp, kuv)
+        before = comm_stats().get("all_reduce", {"calls": 0, "bytes": 0})
+        got = track_direct_sharded(solver, mesh, *kpyr, k4, kp, kuv)
+        after = comm_stats()["all_reduce"]
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"sharded direct {mode.value}: one rank differs from the "
+              "unsharded solver")
+        direct_single[mode] = [x.cpu().numpy() for x in want]
+        print(f"[parallel] 8a direct {mode.value} sharded over one rank, "
+              f"1241x376 L=5 N={DIRECT_N}: bit-equal to the unsharded "
+              f"solver; GN iterations {solver.last_stats['iterations']}, "
+              f"{after['calls'] - before['calls']} all-reduces of "
+              f"{after['bytes'] - before['bytes']} B")
+    print(f"[parallel] 8a collectives: {comm_stats()}")
+    dist.destroy_process_group()
+    t_phase = stage_done("8a (one rank, NCCL)", t_phase)
+
+    # 8b. Two ranks on this card: spawned processes, gloo over a FileStore.
+    problem = _make_problem(BA_L, BA_O, BA_P)
+    ba_opts = BaOptions(max_iterations=BA_ITERS, num_fixed_poses=2)
+
+    def host(pyr):
+        return [level.cpu().numpy() for level in pyr]
+
+    cases = [(functools.partial(track_klt_sharded, tracker),
+              (host(rp), host(cp), uv.cpu().numpy()))
+             for tracker, _ in trackers.values()]
+    cases += [(functools.partial(track_direct_sharded, DirectMethod(
+        DirectMethodOptions(method=mode), device=dev)),
+        (host(kpyr[0]), host(kpyr[1]), k4, kp, kuv))
+        for mode in DirectMethodMode]
+    cases.append((ba_case, (problem, ba_opts)))
+    t_spawn = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        ranks = spawn(run_cases, 2, store, "cuda", cases, device="cuda",
+                      timeout=300.0)
+    print(f"[parallel] 8b two ranks on the card (gloo, FileStore): "
+          f"{time.perf_counter() - t_spawn:.1f} s, start-up included")
+    one, spread = ba_spread(problem, ba_opts, dev)
+    for rank, result in enumerate(ranks):
+        for i, name in enumerate(trackers):
+            check(all(np.array_equal(g, w)
+                      for g, w in zip(result[i], single[name])),
+                  f"8b rank {rank} {name}: two ranks differ from one")
+        for j, mode in enumerate(DirectMethodMode):
+            g_uv, g_q, g_p, g_st = result[len(trackers) + j]
+            w_uv, w_q, w_p, w_st = direct_single[mode]
+            duv = float(np.abs(g_uv - w_uv).max())
+            dpose = float(max(np.abs(g_q - w_q).max(),
+                              np.abs(g_p - w_p).max()))
+            print(f"[compare] 8b rank {rank} direct {mode.value}: |duv| "
+                  f"{duv:.3g} px, |dpose| {dpose:.3g}, "
+                  f"{int((g_st != w_st).sum())} status differences")
+            check(np.array_equal(g_st, w_st) and duv <= DIRECT_UV_TOL,
+                  f"8b rank {rank} direct {mode.value}: two ranks differ")
+        ba = result[-1]
+        ba_agree(f"8b rank {rank} BA L={BA_L} two ranks vs one",
+                 (ba["q"], ba["t"], ba["landmarks"], ba["rms"]), one,
+                 BA_RMS_RANKS, spread)
+        print(f"[parallel] 8b rank {rank} BA all-reduces: "
+              f"{ba['all_reduce_calls']} calls, {ba['all_reduce_bytes']} B "
+              f"({BA_ITERS} steps of psum_bytes {psum} and "
+              f"{BA_ITERS + 1} rms sums of 8 B)")
+        check(ba["all_reduce_calls"] == 2 * BA_ITERS + 1
+              and ba["all_reduce_bytes"]
+              == BA_ITERS * psum + (BA_ITERS + 1) * 8,
+              f"8b rank {rank}: the BA's all-reduces are not one reduced "
+              "camera system per step")
+    print(f"[parallel] 8b one rank's rms history under a one-ulp change of "
+          f"its inputs moves by up to {spread:.3g} relative")
+    t_phase = stage_done("8b (two ranks, gloo)", t_phase)
+
+    # 8c. The BA on the card against the CPU.
+    again = [x.cpu().numpy() for x in bundle_adjust(*problem, ba_opts)]
+    check(all(np.array_equal(a, b) for a, b in zip(again, one)),
+          "8c: two BA runs on the card differ")
+    t_cpu = time.perf_counter()
+    cpu = [x.numpy() for x in bundle_adjust(*problem, ba_opts,
+                                            device="cpu")]
+    print(f"[parallel] 8c BA L={BA_L} on the CPU: "
+          f"{time.perf_counter() - t_cpu:.2f} s (host clock)")
+    ba_agree(f"8c BA L={BA_L} card vs CPU", one, cpu, BA_RMS_CPU, spread)
+    q, t, lm, idx, uv_o, mask, kk = problem
+    args = (*(torch.as_tensor(a, device=dev) for a in (q, t, lm)),
+            torch.as_tensor(idx, device=dev).long(),
+            torch.as_tensor(uv_o, device=dev),
+            torch.as_tensor(mask, device=dev), torch.as_tensor(kk, device=dev))
+    step_ms = cuda_ms(lambda: ba_step(*args, ba_opts), repeats=20)
+    print(f"[parallel] 8c ba_step L={BA_L} O={BA_O} P={BA_P}: {step_ms:.4f} "
+          f"ms per Gauss-Newton iteration (CUDA events, median of 20); two "
+          f"card runs bit-equal; card {card}")
+    profile_window(f"ba_step L={BA_L}", lambda: ba_step(*args, ba_opts),
+                   calls=5)
+    sweep = measure_overhead_vs_landmarks(l_list=SWEEP_L)
+    print(f"[parallel] 8c measure_overhead_vs_landmarks: {json.dumps(sweep)}")
+    check(sweep["hlo_allreduce_bytes"] == sweep["analytic_psum_bytes"],
+          "8c: counted all-reduce bytes differ from ba_comm_report's")
+    dist.destroy_process_group()
+    t_phase = stage_done("8c (BA on the card)", t_phase)
+
+    # 8d. The SLAM back end on rendered KITTI-shaped frames.
+    frames, centres = slam_frames()
+    cuda_klt.track_pyramid_fast_cuda.launches = 0
+    got = slam_back_end(frames, dev)
+    slam_launches = cuda_klt.track_pyramid_fast_cuda.launches
+    check(slam_launches == SLAM_FRAMES - 1,
+          f"8d: {slam_launches} FAST launches over {SLAM_FRAMES - 1} "
+          "tracked frames")
+    want = slam_back_end(frames, "cpu")
+    for mine, theirs in zip(got["results"], want["results"]):
+        alive = mine.status == 1
+        check(np.array_equal(mine.track_ids, theirs.track_ids)
+              and np.array_equal(mine.status, theirs.status)
+              and np.abs(mine.uv[alive] - theirs.uv[alive]).max()
+              <= UV_TOL, f"8d frame {mine.frame_id}: card and CPU tracks "
+              "differ")
+    rms = got["rms"]
+    err_truth = np.linalg.norm(got["cam_ba"] - centres, axis=1)
+    err_direct = np.linalg.norm(got["cam_ba"] - got["cam_direct"], axis=1)
+    print(f"[parallel] 8d SLAM back end, {SLAM_FRAMES} frames 1241x376: "
+          f"{got['landmarks_n']} landmarks, {got['n_obs']} observations, "
+          f"{slam_launches} FAST launches; BA rms {rms[0]:.4f} -> "
+          f"{rms[-1]:.4f} px in {len(rms) - 1} iterations; optimize() "
+          f"{got['optimize_ms']:.2f} ms (host clock); camera position "
+          f"error max {err_truth.max():.4g} m against the truth, "
+          f"{err_direct.max():.4g} m against the direct method (limit "
+          f"{SLAM_POS_TOL} m); card {card}")
+    check(rms[-1] < rms[0], "8d: the BA did not lower the rms")
+    check(err_truth.max() <= SLAM_POS_TOL and err_direct.max()
+          <= SLAM_POS_TOL, "8d: camera positions off")
+    ba_agree("8d window BA card vs CPU", got["state"], want["state"],
+             BA_RMS_CPU, 0.0)
+    stage_done("8d (SLAM back end)", t_phase)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1949,6 +2348,10 @@ def main() -> int:
     kernels.append(raft_phases(dev, card))
     slice_paths(dev, card, frames)
     model_paths(dev, card)
+    sharded = parallel_paths(dev, card, rp, cp, uv, opts)
+    for k in kernels:
+        if k["name"] in sharded:
+            k["sharded_launches"] = sharded[k["name"]]
 
     check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
           "a kernel of the paths was not launched on its main path")

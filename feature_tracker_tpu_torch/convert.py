@@ -12,6 +12,12 @@ end's track state:
   flow = tracker_from_jax(jax_dense_flow, device="cuda")  # DenseOpticalFlow
   matcher_opts = options_from_jax(jax_matcher_options)     # MatcherOptions
 
+The sliding-window back end crosses with its options, its configuration
+and its numpy state:
+
+  window = sliding_window_from_jax(jax_window, device="cuda")
+  opts = ba_options_from_jax(jax_ba_options)
+
 The neural models' weights cross as a Flax variables tree of numpy
 arrays, one converter per model (``raft_state_from_jax``,
 ``superpoint_state_from_jax``, ``disk_state_from_jax``,
@@ -49,6 +55,11 @@ from feature_tracker_tpu_torch.models.disk import DiskConfig
 from feature_tracker_tpu_torch.models.lightglue import LightGlueConfig
 from feature_tracker_tpu_torch.models.raft import RaftConfig
 from feature_tracker_tpu_torch.models.superpoint import SuperPointConfig
+from feature_tracker_tpu_torch.parallel.ba import BaOptions
+from feature_tracker_tpu_torch.parallel.window_ba import (
+    SlidingWindowBa,
+    WindowConfig,
+)
 from feature_tracker_tpu_torch.pipeline import FrontEndConfig
 from feature_tracker_tpu_torch.trackers.dense import (
     DenseFlowOptions,
@@ -69,7 +80,8 @@ _PORT_CONFIGS = {cls.__name__: cls for cls in
                  (KltOptions, HarrisOptions, PyramidOptions, FrontEndConfig,
                   RaftConfig, MatcherOptions, DirectMethodOptions,
                   DenseFlowOptions, SuperPointConfig, DiskConfig,
-                  LightGlueConfig, NNMatcherOptions, CoTrackerConfig)}
+                  LightGlueConfig, NNMatcherOptions, CoTrackerConfig,
+                  BaOptions, WindowConfig)}
 _PORT_ENUMS = {cls.__name__: cls for cls in (KltMethod, DirectMethodMode,
                                              NNMatcherModelType)}
 
@@ -79,7 +91,8 @@ def options_from_jax(obj):
     ``PyramidOptions``, ``FrontEndConfig``, ``RaftConfig``,
     ``MatcherOptions``, ``DirectMethodOptions``, ``DenseFlowOptions``,
     ``SuperPointConfig``, ``DiskConfig``, ``LightGlueConfig``,
-    ``NNMatcherOptions`` or ``CoTrackerConfig`` (nested configs included),
+    ``NNMatcherOptions``, ``CoTrackerConfig``, ``BaOptions`` or
+    ``WindowConfig`` (nested configs included),
     built field by field; ``KltMethod``, ``DirectMethodMode`` and
     ``NNMatcherModelType`` cross by their ``.value``, a float dtype by its
     name."""
@@ -103,6 +116,45 @@ def options_from_jax(obj):
     if "dtype" in values:
         values["dtype"] = getattr(torch, np.dtype(values["dtype"]).name)
     return cls(**values)
+
+
+def _named(obj, name: str):
+    if type(obj).__name__ != name:
+        raise TypeError(f"expected a JAX {name}, got {type(obj)!r}")
+    return options_from_jax(obj)
+
+
+def ba_options_from_jax(opts) -> BaOptions:
+    """The port's ``BaOptions`` for a JAX ``parallel.ba.BaOptions``."""
+    return _named(opts, "BaOptions")
+
+
+def window_config_from_jax(cfg) -> WindowConfig:
+    """The port's ``WindowConfig`` for a JAX
+    ``parallel.window_ba.WindowConfig``."""
+    return _named(cfg, "WindowConfig")
+
+
+_WINDOW_ARRAYS = ("q_cw", "t_cw", "kf_alive", "landmarks", "lm_alive",
+                  "obs_pose", "obs_uv", "obs_mask", "_obs_next")
+
+
+def sliding_window_from_jax(jax_window, device=None,
+                            mesh=None) -> SlidingWindowBa:
+    """The port's ``SlidingWindowBa`` in the state of a JAX one: its
+    intrinsics, configuration, BA options, keyframes, landmarks, the
+    observation ring and its cursors (the JAX window's mesh is not
+    carried; pass the port's own)."""
+    window = SlidingWindowBa(jax_window.k4,
+                             window_config_from_jax(jax_window.cfg),
+                             ba_options_from_jax(jax_window.ba_options),
+                             mesh=mesh, device=device)
+    for name in _WINDOW_ARRAYS:
+        mine = getattr(window, name)
+        setattr(window, name,
+                np.array(getattr(jax_window, name), dtype=mine.dtype))
+    window._next_kf = int(jax_window._next_kf)
+    return window
 
 
 def tracker_from_jax(jax_tracker, device="cuda"):

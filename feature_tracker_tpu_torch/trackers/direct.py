@@ -88,7 +88,7 @@ def _sample_patch(padded, pad: int, img_shape, uv, pr: int, pc: int,
 
     Returns (value [N, P], valid [N, P], grad [N, P, 2] | None,
     ok_grad [N, P] | None)."""
-    n = uv.shape[0]
+    n, npix = uv.shape[0], pr * pc
     win = max(pr, pc) + 3
     r0, c0, wts = const_weights(uv)
     min_r = r0 - pr // 2
@@ -108,17 +108,17 @@ def _sample_patch(padded, pad: int, img_shape, uv, pr: int, pc: int,
     cc = min_c[:, None] + torch.arange(-1, pc + 1, device=uv.device)
     row_ok = (rr >= 0) & (rr <= h - 2)
     col_ok = (cc >= 0) & (cc <= w - 2)
-    v_c = (row_ok[:, 1:-1, None] & col_ok[:, None, 1:-1]).reshape(n, -1)
-    value = torch.where(v_c, sh(0, 0).reshape(n, -1), 0.0)
+    v_c = (row_ok[:, 1:-1, None] & col_ok[:, None, 1:-1]).reshape(n, npix)
+    value = torch.where(v_c, sh(0, 0).reshape(n, npix), 0.0)
     if not grads:
         return value, v_c, None, None
     # The centre and its four neighbours valid (tap_validity of the four
     # shifted patches, ANDed).
     rows3 = row_ok[:, :-2] & row_ok[:, 1:-1] & row_ok[:, 2:]
     cols3 = col_ok[:, :-2] & col_ok[:, 1:-1] & col_ok[:, 2:]
-    ok = (rows3[:, :, None] & cols3[:, None, :]).reshape(n, -1)
-    grad = 0.5 * torch.stack([(sh(0, 1) - sh(0, -1)).reshape(n, -1),
-                              (sh(1, 0) - sh(-1, 0)).reshape(n, -1)], dim=-1)
+    ok = (rows3[:, :, None] & cols3[:, None, :]).reshape(n, npix)
+    grad = 0.5 * torch.stack([(sh(0, 1) - sh(0, -1)).reshape(n, npix),
+                              (sh(1, 0) - sh(-1, 0)).reshape(n, npix)], dim=-1)
     return value, v_c, grad, ok
 
 
@@ -151,16 +151,27 @@ def _gram(jm, jac):
     return jm.reshape(-1, 6).double().T @ jac.reshape(-1, 6).double()
 
 
+def _own_sums(*sums):
+    """The 6x6 system's sums of one process: nothing to add."""
+    return sums
+
+
 def _track_level(opts: DirectMethodOptions, ref_img, cur_img, k4, p_ref,
-                 ref_uv, cur_uv0, q0, p0):
-    """One pyramid level. Returns (q, p, cur_uv, iterations)."""
+                 ref_uv, cur_uv0, q0, p0, reduce=_own_sums, first: int = 0):
+    """One pyramid level. Returns (q, p, cur_uv, iterations).
+
+    ``p_ref`` may be one slice of the features, whose first has the global
+    index ``first``; ``reduce`` then sums H and b over every slice
+    (``parallel/sharded.py::track_direct_sharded``), so that each process
+    solves the same system and ends its loop at the same iteration."""
     n = p_ref.shape[0]
     dev = p_ref.device
     pr, pc = 2 * opts.patch_row_half_size + 1, 2 * opts.patch_col_half_size + 1
     pad = max(pr, pc) + 3
     ref_pad = pad_image(ref_img, pad)
     cur_pad = pad_image(cur_img, pad)
-    in_limit = torch.arange(n, device=dev) < opts.max_track_points
+    in_limit = (torch.arange(first, first + n, device=dev)
+                < opts.max_track_points)
     fx, fy = k4[0], k4[1]
     valid_ref_depth = p_ref[:, 2] >= _EPS_Z
 
@@ -178,7 +189,7 @@ def _track_level(opts: DirectMethodOptions, ref_img, cur_img, k4, p_ref,
         # H frozen from the reference-only validity.
         mask_fast = (ok_grad_ref & valid_ref_depth[:, None]
                      & in_limit[:, None]).float()
-        h_fast = _gram(jac_ref * mask_fast[..., None], jac_ref)
+        (h_fast,) = reduce(_gram(jac_ref * mask_fast[..., None], jac_ref))
 
     q, p, cur_uv = q0, p0, cur_uv0
     done = torch.zeros((), dtype=torch.bool, device=dev)
@@ -202,11 +213,12 @@ def _track_level(opts: DirectMethodOptions, ref_img, cur_img, k4, p_ref,
         mask = (okpix & valid_feat[:, None]).float()
         residual = (curv - refv) * mask
         jm = jac * mask[..., None]
+        bias = residual.reshape(1, -1).double() @ jm.reshape(-1, 6).double()
         if opts.method == DirectMethodMode.FAST:
             hess = h_fast
+            (bias,) = reduce(bias)
         else:
-            hess = _gram(jm, jac)
-        bias = residual.reshape(1, -1).double() @ jm.reshape(-1, 6).double()
+            hess, bias = reduce(_gram(jm, jac), bias)
 
         dx = solve_sym(hess[None], bias)[0]
         isnan = torch.isnan(dx).any()
@@ -241,6 +253,13 @@ class DirectMethod:
               q_rc=None, p_rc=None, cur_uv=None, status=None):
         """Relative-frame entry. Returns ``(cur_uv [N, 2], q_rc [4],
         p_rc [3], status [N] int8)`` on the tracker's device."""
+        return self._track(ref_pyramid, cur_pyramid, k4, p_c_in_ref, ref_uv,
+                           q_rc, p_rc, cur_uv, status)
+
+    def _track(self, ref_pyramid, cur_pyramid, k4, p_c_in_ref, ref_uv, q_rc,
+               p_rc, cur_uv, status, reduce=_own_sums, first: int = 0):
+        """:meth:`track` on one slice of the features (see
+        :func:`_track_level` for ``reduce`` and ``first``)."""
         k4 = self._f32(k4)
         p_c_in_ref = self._f32(p_c_in_ref)
         ref_uv = self._f32(ref_uv)
@@ -262,7 +281,7 @@ class DirectMethod:
             q, p, cur_uv, its = _track_level(
                 self.options, self._f32(ref_pyramid[lvl]),
                 self._f32(cur_pyramid[lvl]), s_k, p_c_in_ref, s_ref, cur_uv,
-                q, p)
+                q, p, reduce, first)
             iterations.append(its)
             if lvl > 0:
                 s_ref = s_ref * 2.0

@@ -1009,3 +1009,107 @@ def test_cotracker_card_matches_cpu(card):
     spread = (tracks - tracks2).abs().max(), (vis - vis2).abs().max()
     assert (tracks.cpu() - want).abs().max() <= max(1e-3, 2 * spread[0])
     assert (vis.cpu() - want_vis).abs().max() <= max(1e-4, 2 * spread[1])
+
+
+# The parallel layer (no kernel of its own): one rank in this process over
+# its own NCCL group, and the bundle adjuster on the card.
+
+@pytest.fixture
+def card_mesh(card):
+    import torch.distributed as dist
+
+    from feature_tracker_tpu_torch.parallel import make_mesh
+
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+def test_one_rank_sharded_fast_klt_is_the_unsharded_tracker(pair, card_mesh):
+    from feature_tracker_tpu_torch.parallel import track_klt_sharded
+
+    rp, cp = pair
+    uv = torch.from_numpy(_features(1001, 240, 320, 10, seed=21)).cuda()
+    tracker = BasicKlt(KltOptions(max_track_points=900))
+    want = tracker.track(rp, cp, uv)
+    cuda_klt.track_pyramid_fast_cuda.launches = 0
+    got = track_klt_sharded(tracker, card_mesh, rp, cp, uv)
+    assert cuda_klt.track_pyramid_fast_cuda.launches == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1][900:] == 0).all()
+
+
+def _noisy_window(num_poses=6, num_lm=512, obs=4, seed=0):
+    """tests/test_parallel.py's ``_synthetic_ba`` (that file imports JAX):
+    landmarks ahead of a forward-moving camera line, 0.3 px of noise on
+    the observations, 0.05 on the initial poses (but the first) and
+    landmarks."""
+    rng = np.random.default_rng(seed)
+    k4 = np.array([200.0, 200.0, 160.0, 120.0], np.float32)
+    lm = np.stack([rng.uniform(-3, 3, num_lm), rng.uniform(-2, 2, num_lm),
+                   rng.uniform(8, 16, num_lm)], -1).astype(np.float32)
+    q = np.tile(np.array([1.0, 0, 0, 0], np.float32), (num_poses, 1))
+    t = np.stack([np.zeros(num_poses), np.zeros(num_poses),
+                  -0.4 * np.arange(num_poses)], -1).astype(np.float32)
+    idx = np.stack([rng.choice(num_poses, obs, replace=False)
+                    for _ in range(num_lm)]).astype(np.int32)
+    p_c = lm[:, None, :] + t[idx]
+    uv = np.stack([k4[0] * p_c[..., 0] / p_c[..., 2] + k4[2],
+                   k4[1] * p_c[..., 1] / p_c[..., 2] + k4[3]], -1)
+    uv += rng.normal(0, 0.3, uv.shape)
+    t0 = t.copy()
+    t0[1:] += rng.normal(0, 0.05, (num_poses - 1, 3))
+    lm0 = lm + rng.normal(0, 0.05, lm.shape)
+    return (q, t0.astype(np.float32), lm0.astype(np.float32), idx,
+            uv.astype(np.float32), np.ones(idx.shape, bool), k4)
+
+
+def _noisy_launcher_problem():
+    """The launcher's problem at 4096 landmarks with 0.3 px of noise on
+    the observations."""
+    from feature_tracker_tpu_torch.parallel.scaling import _make_problem
+
+    q, t, lm, idx, uv, mask, k4 = _make_problem(4096, 4, 8)
+    uv = uv + np.random.default_rng(5).normal(0, 0.3, uv.shape).astype(
+        np.float32)
+    return q, t, lm, idx, uv, mask, k4
+
+
+@pytest.mark.parametrize("problem,iterations", [("window", 8),
+                                                ("launcher", 5)])
+def test_bundle_adjust_card_matches_cpu_and_repeats(card, problem,
+                                                    iterations):
+    """Two runs on the card give the same bits; the card is within JAX's
+    sharded tolerances of the CPU (q 1e-4; t 1e-3; landmarks rtol 1e-3,
+    atol 5e-3) and its rms history within 1e-3 relative."""
+    from feature_tracker_tpu_torch.parallel import BaOptions, bundle_adjust
+
+    prob = (_noisy_window() if problem == "window"
+            else _noisy_launcher_problem())
+    opts = BaOptions(max_iterations=iterations, num_fixed_poses=2)
+    first = [x.cpu().numpy() for x in bundle_adjust(*prob, opts)]
+    again = [x.cpu().numpy() for x in bundle_adjust(*prob, opts)]
+    cpu = [x.numpy() for x in bundle_adjust(*prob, opts, device="cpu")]
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(first[0], cpu[0], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(first[1], cpu[1], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(first[2], cpu[2], rtol=1e-3, atol=5e-3)
+    np.testing.assert_allclose(first[3], cpu[3], rtol=1e-3)
+    assert first[3][-1] < first[3][0]
+
+
+def test_make_mesh_without_a_card_raises(card):
+    """With the card hidden, ``make_mesh()`` (device "cuda" by default)
+    raises and names the way to the CPU; it does not fall back."""
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-c", "from feature_tracker_tpu_torch.parallel "
+         "import make_mesh; make_mesh()"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert out.returncode != 0
+    assert "device='cpu'" in out.stderr

@@ -177,6 +177,20 @@ def test_non_positive_depths_stop_without_raising(scene):
     np.testing.assert_array_equal(got[0].numpy(), scene["ref_uv"])
 
 
+@pytest.mark.parametrize("mode", ["direct", "inverse", "fast"])
+def test_zero_features_keep_the_pose_as_jax(scene, mode):
+    """No feature (an empty slice, a window without landmarks): empty
+    outputs and the initial pose, as in JAX."""
+    empty = (np.zeros((0, 3), np.float32), np.zeros((0, 2), np.float32))
+    jopts = jdirect.DirectMethodOptions(
+        method=jdirect.DirectMethodMode(mode))
+    want = jdirect.DirectMethod(jopts).track(*scene["jax"], K4, *empty)
+    got = direct.DirectMethod(options_from_jax(jopts), device="cpu").track(
+        *scene["port"], K4, *empty)
+    _assert_same(got, want)
+    assert got[0].shape == (0, 2) and got[3].shape == (0,)
+
+
 def test_direct_mode_matches_the_native_ground_truth(scene):
     if not cpu_baseline.available():
         pytest.skip("no C++ compiler for the native ground truth")

@@ -252,5 +252,7 @@ def test_the_name_guard_covers_the_ported_modules():
             "utils/timer.py", "utils/profiling.py",
             "utils/viz.py", "models/superpoint.py", "models/disk.py",
             "models/lightglue.py", "match/nn_matcher.py",
-            "models/cotracker.py"} <= set(COUNTERPARTS)
+            "models/cotracker.py", "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/sharded.py", "parallel/ba.py", "parallel/window_ba.py",
+            "parallel/scaling.py"} <= set(COUNTERPARTS)
     assert set(ALLOWED_MISSING) <= set(COUNTERPARTS)
