@@ -106,6 +106,27 @@ Phases (any failed check raises, so the exit code is non-zero):
      ``SlidingWindowBa`` with the demo's settings, the direct method as a
      cross-check; the camera positions near the truth and the direct
      method's, the same path on the CPU giving the same tracks and BA.
+  9. Training, each sub-phase timed, TF32 off, every step held to the same
+     step on the CPU from the same state (the loss; the clipped gradients,
+     read from Adam's first moments, each leaf within 1e-3 of its largest;
+     the parameters where the gradient counts; the new batch statistics):
+     (a) RAFT at full width (``RaftConfig(max_iterations=8)``, from
+     ``weights/raft.npz`` with a fresh optimizer, lr 3e-4) on
+     ``raft_pretrain.make_pool`` batches of 4 x 128x128, the shipped model's
+     training shape: one step against the CPU, then 20 steps timed (ms per
+     step, peak memory, the device's idle share), and the step at 4 x
+     368x496 with 12 iterations (the RAFT paper's FlyingChairs crop); (b)
+     the unsupervised photometric step on the same pool; (c) two ranks on
+     the one card (gloo, the batch split 2 + 2) against the one-rank step,
+     with the all-reduced bytes counted; (d) a checkpoint at step 5
+     restored into a fresh state, step 6 both ways (bit-equal, or within
+     twice the spread of identical runs), retention and a restore without a
+     checkpoint; (e) the SuperPoint, DISK and LightGlue trainers at their
+     shipped configurations and weights with their trainers' defaults: one
+     step against the CPU, then 20 steps timed and profiled; (f)
+     ``raft_pretrain.main(steps=20, h=128, w=128, batch=4, iters=8)``
+     writing into a temporary directory, its held-out line printed, and
+     every file under ``weights/`` byte for byte as before the run.
 Then one JSON line with the kernels of the paths (kernels 1, 3 and 4 also
 with their launches on the sharded paths), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.
@@ -206,6 +227,20 @@ SLAM_FRAMES, SLAM_STEP, SLAM_YAW = 6, (0.01, -0.005, 0.02), 0.001
 SLAM_POS_TOL = 0.01
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores.
+# Phase 9: the shipped RAFT's own training shape (weights/metrics.json
+# "raft": batch 4, 128x128, 8 iterations), and the RAFT paper's
+# FlyingChairs crop and training iteration count.
+TRAIN_SHAPE = (4, 128, 128)
+TRAIN_ITERS = 8
+CHAIRS = (4, 368, 496, 12)
+TRAIN_STEPS = 20
+RAFT_VARIABLES = 3435088        # RaftConfig()'s parameters + statistics
+TRAIN_GRAD_TOL = 1e-3           # of a leaf's largest |g|, card vs CPU
+TRAIN_GRAD_FLOOR = 1e-6         # of the largest |g| over all leaves
+TRAIN_ZERO_GRAD = 1e-5          # of the largest, where the gradient is 0
+TRAIN_PARAM_TOL = 1e-6          # where |g| counts (moments_agree)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_STATS_RTOL, TRAIN_STATS_ATOL = 1e-4, 1e-5
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
@@ -1931,6 +1966,446 @@ def parallel_paths(dev, card, rp, cp, uv, opts):
     return launches
 
 
+# --------------------------------------------------------------- phase 9
+def weights_digest() -> dict:
+    """sha256 of every file under weights/."""
+    import hashlib
+
+    base = os.path.join(ROOT, "weights")
+    out = {}
+    for name in sorted(os.listdir(base)):
+        with open(os.path.join(base, name), "rb") as fh:
+            out[name] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def to_device(tree, dev):
+    """Tensors of nested dicts on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(to_device(v, dev) for v in tree)
+    return torch.as_tensor(tree).to(dev)
+
+
+def moments_agree(label, got, want, zero=(), spread=None):
+    """(params, opt_state) after one step from the same state, on the card
+    and on the CPU: the first moments (``mu = (1 - b1) * clipped g`` after
+    a first step, so the clipped gradients) leaf by leaf within
+    TRAIN_GRAD_TOL of the leaf's largest value plus TRAIN_GRAD_FLOOR of the
+    largest over all leaves, the second moments likewise, and the
+    parameters within TRAIN_PARAM_TOL where |g| is above TRAIN_GRAD_TOL of
+    its leaf's largest and the floor (elsewhere Adam's first step turns
+    rounding into +-lr). The leaves named in ``zero`` have a gradient that
+    is 0 but for rounding (a convolution's bias ahead of a training-mode
+    batch norm): on both sides it stays below TRAIN_ZERO_GRAD of the
+    largest. ``spread`` (``train_spread``: how far any leaf's moments move
+    under a one-ulp change of the inputs) raises every limit to twice it
+    where that is larger, and leaves out of the parameter check the
+    elements whose |g| is within twice it (their sign is rounding).
+    Returns the clipped global gradient norms (card, CPU)."""
+    (gp, go), (wp, wo) = (to_device(got, "cpu"), to_device(want, "cpu"))
+    check(list(gp) == list(wp) and int(go["count"]) == int(wo["count"]),
+          f"{label}: the states differ in layout")
+    spread = spread or {"mu": 0.0, "nu": 0.0}
+    worst, by_spread = {}, 0
+    for moment in ("mu", "nu"):
+        top = max(float(v.abs().max()) for v in wo[moment].values())
+        ratios = []
+        for k, w in wo[moment].items():
+            if k in zero:
+                continue
+            base = (TRAIN_GRAD_TOL * float(w.abs().max())
+                    + TRAIN_GRAD_FLOOR * top)
+            lim = max(base, 2.0 * spread[moment])
+            by_spread += lim > base
+            ratios.append((float((go[moment][k] - w).abs().max()) / lim, k))
+        worst[moment] = max(ratios)[0]
+        if worst[moment] > 1:
+            print(f"[compare] {label}: {moment} beyond its limit: " + ", ".join(
+                f"{k} at {r:.3g}" for r, k in sorted(ratios)[-5:]))
+    top = max(float(v.abs().max()) for v in wo["mu"].values())
+    if zero:
+        z = max(float(o["mu"][k].abs().max()) for o in (go, wo)
+                for k in zero) / top
+        print(f"[compare] {label}: {len(zero)} leaves with a zero gradient "
+              f"stay within {z:.3g} of the largest |g| (limit "
+              f"{TRAIN_ZERO_GRAD:g})")
+        check(z <= TRAIN_ZERO_GRAD, f"{label}: a zero gradient is not")
+    floor = TRAIN_GRAD_FLOOR * top
+    dp = 0.0
+    for k, w in wp.items():
+        g = wo["mu"][k].abs()
+        sel = ((g > TRAIN_GRAD_TOL * g.max()) & (g > floor)
+               & (g > 2.0 * spread["mu"]))
+        if sel.any() and k not in zero:
+            dp = max(dp, float((gp[k] - w).abs()[sel].max()))
+    norms = tuple(float(torch.sqrt(sum((v.double() ** 2).sum()
+                                       for v in o["mu"].values())) / 0.1)
+                  for o in (go, wo))
+    print(f"[compare] {label}: clipped gradient norm {norms[0]:.6g} / "
+          f"{norms[1]:.6g}; worst leaf of mu at {worst['mu']:.3g} and of nu "
+          f"at {worst['nu']:.3g} of its limit ({TRAIN_GRAD_TOL:g} of the "
+          f"leaf's largest + {TRAIN_GRAD_FLOOR:g} of the largest, or twice "
+          f"the one-ulp spread {spread['mu']:.3g} / {spread['nu']:.3g} for "
+          f"{by_spread} of the moments' leaves); parameters within "
+          f"{dp:.3g} where |g| counts")
+    check(worst["mu"] <= 1 and worst["nu"] <= 1,
+          f"{label}: gradients differ")
+    check(dp <= TRAIN_PARAM_TOL, f"{label}: parameters differ by {dp}")
+    return norms
+
+
+def train_spread(step, start, batch):
+    """How far the Adam moments after one CPU step move, in any leaf, when
+    the images (the first two inputs) or the parameters move by one ulp:
+    ``{"mu": max |d|, "nu": max |d|}``. The full RAFT's gradient is
+    discontinuous (the cells of the bilinear taps, ReLUs), and such a move
+    crosses some of its kinks, which shifts small leaves, such as the
+    encoders', by up to a few percent of their own largest value (on the
+    CPU and on an H100 alike); the card's rounding crosses others."""
+    def up(t):
+        return torch.nextafter(t, torch.full_like(t, np.inf))
+
+    cpu = [torch.as_tensor(t).cpu() for t in batch]
+    base, _ = step(start, *cpu)
+    moved_params = {k: up(v) for k, v in start.params.items()}
+    others = [step(start, *[up(t) if i < 2 else t for i, t in
+                            enumerate(cpu)])[0],
+              step(start.replace(params=moved_params), *cpu)[0]]
+    return {m: max(float((o.opt_state[m][k] - v).abs().max())
+                   for o in others for k, v in base.opt_state[m].items())
+            for m in ("mu", "nu")}
+
+
+def train_state_agree(label, got, want, got_m, want_m, spread=None):
+    """Two RAFT TrainStates after one step from the same state, and their
+    metrics: ``moments_agree``, the loss and metrics within TRAIN_LOSS_RTOL,
+    the new batch statistics within TRAIN_STATS_RTOL + TRAIN_STATS_ATOL."""
+    for key in want_m:
+        a, b = float(got_m[key]), float(want_m[key])
+        check(abs(a - b) <= TRAIN_LOSS_RTOL * abs(b),
+              f"{label}: {key} {a} against {b}")
+    d_stats = {k: (got.batch_stats[k].cpu() - w.cpu()).abs()
+               for k, w in want.batch_stats.items()}
+    print(f"[compare] {label}: " + ", ".join(
+        f"{k} {float(got_m[k]):.6f} / {float(want_m[k]):.6f}"
+        for k in want_m) + "; batch statistics within "
+        f"{max(float(d.max()) for d in d_stats.values()):.3g}")
+    check(all(bool((d <= TRAIN_STATS_RTOL * want.batch_stats[k].cpu().abs()
+                    + TRAIN_STATS_ATOL).all()) for k, d in d_stats.items()),
+          f"{label}: batch statistics differ")
+    zero = {k for k in want.params
+            if re.search(r"ResNetBlock_\d+\.Conv_\d+\.bias$", k)}
+    return moments_agree(label, (got.params, got.opt_state),
+                         (want.params, want.opt_state), zero, spread)
+
+
+def expected_train_all_reduces(cfg, n_params):
+    """(calls, bytes) of one data-parallel RAFT step, counted from the
+    model: each training-mode batch norm sums [2, C] float32 forward and
+    its gradient backward (the feature encoder runs twice, the context
+    encoder once), the loss its per-iteration sums both ways, the EPE one
+    sum, the gradient one flat all-reduce."""
+    from feature_tracker_tpu_torch.models.raft import BatchNorm, Raft
+
+    calls = nbytes = 0
+    for name, module in Raft(cfg, device="cpu").named_modules():
+        if isinstance(module, BatchNorm):
+            runs = 2 if name.startswith("feature_enc") else 1
+            calls += 2 * runs
+            nbytes += 2 * runs * 2 * module.num_features * 4
+    return (calls + 4,
+            nbytes + 2 * cfg.max_iterations * 4 + 4 + 4 * n_params)
+
+
+def timed_steps(label, run, card, steps, extra=""):
+    """ms per step of ``run`` (CUDA events, median after warm-up) and the
+    peak device memory over the run; prints one line."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(run, repeats=steps - 3, warmup=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"[train] {label}: {ms:.4f} ms per step (CUDA events, median of "
+          f"{steps - 3} after 3 warm-up steps); peak memory {peak:.1f} MiB"
+          f"{extra}; card {card}")
+    return ms, peak
+
+
+def train_paths(dev, card, weights_before):
+    """Phase 9 (see the module docstring): RAFT's trainers, the checkpoint
+    and the model trainers on the card, each step held to the CPU's."""
+    import contextlib
+    import io
+    import tempfile
+
+    from feature_tracker_tpu_torch.models.disk import Disk, DiskConfig
+    from feature_tracker_tpu_torch.models.layers import flax_order
+    from feature_tracker_tpu_torch.models.lightglue import (
+        LightGlue,
+        LightGlueConfig,
+    )
+    from feature_tracker_tpu_torch.models.raft import RaftConfig
+    from feature_tracker_tpu_torch.models.superpoint import (
+        SuperPoint,
+        SuperPointConfig,
+    )
+    from feature_tracker_tpu_torch.parallel.multihost_ba import (
+        run_cases,
+        spawn,
+    )
+    from feature_tracker_tpu_torch.train import (
+        disk_train,
+        lightglue_train,
+        raft_pretrain,
+        superpoint_train,
+    )
+    from feature_tracker_tpu_torch.train.checkpoint import CheckpointManager
+    from feature_tracker_tpu_torch.train.raft_train import (
+        RaftTrainConfig,
+        TrainState,
+        data_parallel_case,
+        make_optimizer,
+        make_train_step,
+        make_unsup_train_step,
+        split_state,
+    )
+    from feature_tracker_tpu_torch.utils.weights import (
+        load_disk_npz,
+        load_lightglue_npz,
+        load_raft_npz,
+        load_superpoint_npz,
+        weights_path,
+    )
+
+    t_phase = time.perf_counter()
+    # 9a. RAFT at full width from the shipped weights, fresh optimizer.
+    b, h, w = TRAIN_SHAPE
+    cfg = RaftConfig(max_iterations=TRAIN_ITERS)
+    tcfg = RaftTrainConfig(learning_rate=3e-4)
+    params, stats = split_state(load_raft_npz(weights_path("raft.npz"), cfg))
+    n_params = sum(v.numel() for v in params.values())
+    n_stats = sum(v.numel() for v in stats.values())
+    check(n_params + n_stats == RAFT_VARIABLES,
+          f"RAFT has {n_params} parameters and {n_stats} statistics")
+    start = TrainState(step=torch.zeros((), dtype=torch.int32),
+                       params=params, batch_stats=stats,
+                       opt_state=make_optimizer(tcfg).init(params))
+    pool = raft_pretrain.make_pool(np.random.default_rng(0), TRAIN_STEPS, h,
+                                   w, b, augment=False, device=dev)
+    step = make_train_step(cfg, tcfg)
+    one, m_one = step(start.to(dev), *pool[0])
+    t0 = time.perf_counter()
+    cpu_one, m_cpu = step(start, *(t.cpu() for t in pool[0]))
+    print(f"[train] 9a one step on the CPU: {time.perf_counter() - t0:.1f} s"
+          " (host clock)")
+    label = (f"9a RAFT {n_params} parameters + {n_stats} statistics, "
+             f"{b} x {h}x{w}, "
+             f"{TRAIN_ITERS} iterations, card vs CPU")
+    spread = train_spread(step, start, pool[0])
+    train_state_agree(label, one, cpu_one, m_one, m_cpu, spread)
+    box, losses = [start.to(dev)], []
+
+    def run():
+        box[0], m = step(box[0], *pool[len(losses) % len(pool)])
+        losses.append(m["loss"])
+
+    ms, peak = timed_steps(f"9a RAFT train step {b} x {h}x{w}, "
+                           f"{TRAIN_ITERS} iterations (shipped weights, lr "
+                           f"{tcfg.learning_rate:g})", run, card, TRAIN_STEPS)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), f"9a losses {losses}")
+    print(f"[train] 9a losses over {len(losses)} steps: {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}")
+    profile_window(f"raft train step {b}x{h}x{w}", run, calls=5)
+
+    cb, ch, cw, citers = CHAIRS
+    ccfg = RaftConfig(max_iterations=citers)
+    cpool = raft_pretrain.make_pool(np.random.default_rng(1), 1, ch, cw, cb,
+                                    augment=False, device=dev)
+    cstep = make_train_step(ccfg, tcfg)
+    cbox, closses = [start.to(dev)], []
+
+    def crun():
+        cbox[0], m = cstep(cbox[0], *cpool[0])
+        closses.append(m["loss"])
+
+    timed_steps(f"9a RAFT train step {cb} x {ch}x{cw}, {citers} iterations "
+                "(FlyingChairs crop and iterations of the RAFT paper)", crun,
+                card, 13)
+    check(all(np.isfinite([float(x) for x in closses])), "9a chairs losses")
+    t_phase = stage_done("9a (RAFT train step)", t_phase)
+
+    # 9b. The unsupervised step on the same pool.
+    ustep = make_unsup_train_step(cfg, tcfg)
+    u_one, um = ustep(start.to(dev), pool[0][0], pool[0][1])
+    u_cpu, umc = ustep(start, pool[0][0].cpu(), pool[0][1].cpu())
+    train_state_agree(f"9b RAFT unsupervised step {b} x {h}x{w}, card vs CPU",
+                      u_one, u_cpu, um, umc,
+                      train_spread(ustep, start, pool[0][:2]))
+    ubox = [start.to(dev)]
+
+    def urun():
+        ubox[0], _ = ustep(ubox[0], pool[0][0], pool[0][1])
+
+    timed_steps(f"9b RAFT unsupervised step {b} x {h}x{w}", urun, card, 13)
+    t_phase = stage_done("9b (unsupervised step)", t_phase)
+
+    # 9c. Two ranks on the one card: the batch of 4 split 2 + 2.
+    t_spawn = time.perf_counter()
+    batch0 = [t.cpu().numpy() for t in pool[0]]
+    with tempfile.TemporaryDirectory() as store:
+        ranks = spawn(run_cases, 2, store, "cuda",
+                      [(data_parallel_case, (cfg, tcfg, start, *batch0))],
+                      device="cuda", timeout=600.0)
+    print(f"[parallel] 9c two ranks on the card (gloo, FileStore): "
+          f"{time.perf_counter() - t_spawn:.1f} s, start-up included")
+    calls, nbytes = expected_train_all_reduces(cfg, n_params)
+    for rank, (got,) in enumerate(ranks):
+        state = TrainState(**to_device(got["state"], "cpu"))
+        train_state_agree(f"9c rank {rank} of 2 vs one rank on the card",
+                          state, one, {k: got[k] for k in ("loss", "epe")},
+                          m_one, spread)
+        print(f"[parallel] 9c rank {rank} all-reduces: "
+              f"{got['all_reduce_calls']} calls, {got['all_reduce_bytes']} B "
+              f"(expected {calls} calls, {nbytes} B: the batch norms' "
+              f"statistics both ways, the loss, the EPE, {n_params} "
+              "gradients)")
+        check((got["all_reduce_calls"], got["all_reduce_bytes"])
+              == (calls, nbytes), f"9c rank {rank}: unexpected all-reduces")
+    t_phase = stage_done("9c (two ranks, gloo)", t_phase)
+
+    # 9d. Checkpoint at step 5, restore into a fresh state, step 6 both ways.
+    s5 = start.to(dev)
+    for i in range(5):
+        s5, _ = step(s5, *pool[i])
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"), max_to_keep=2)
+        check(mgr.save(5, s5), "9d: the first save did not happen")
+        restored = mgr.restore(start.to(dev))
+        check(all(torch.equal(a, b) for a, b in
+                  zip(restored.leaves(), s5.leaves())),
+              "9d: the restored state differs from the saved one")
+        direct = step(s5, *pool[5])[0]
+        resumed = step(restored, *pool[5])[0]
+        again = [step(s5, *pool[5])[0] for _ in range(2)]
+
+        def diff(a, b):
+            return max(float((x.float() - y.float()).abs().max())
+                       for x, y in zip(a.leaves(), b.leaves()))
+
+        d_resumed = diff(direct, resumed)
+        spread = max(diff(direct, a) for a in again)
+        held = ("bit-equal" if d_resumed == 0 else
+                f"within {d_resumed:.3g}, twice the spread of identical "
+                f"step-6 runs being {2 * spread:.3g}")
+        print(f"[train] 9d step 6 from the restored step-5 checkpoint "
+              f"against step 6 without it: {held}; identical runs differ by "
+              f"up to {spread:.3g} (cuDNN's and the lookup's backward "
+              f"{'are' if spread == 0 else 'are not'} deterministic here)")
+        check(d_resumed <= 2 * spread, "9d: the resumed step differs")
+        mgr.save(6, direct)
+        mgr.save(7, step(direct, *pool[0])[0])
+        check(mgr.all_steps() == [6, 7] and not mgr.save(7, direct),
+              f"9d: retention kept {mgr.all_steps()}")
+        try:
+            CheckpointManager(os.path.join(tmp, "empty")).restore(start)
+            check(False, "9d: restoring from an empty directory")
+        except FileNotFoundError:
+            pass
+    t_phase = stage_done("9d (checkpoint)", t_phase)
+
+    # 9e. The model trainers at their shipped configurations and weights,
+    # with their trainers' defaults.
+    rng = np.random.default_rng(2)
+
+    def sp_batch():
+        imgs, labs = [], []
+        for _ in range(4):
+            img, corners = superpoint_train.synthetic_corners_image(rng, 64,
+                                                                    64)
+            imgs.append(img[..., None])
+            labs.append(superpoint_train.corner_label_map(corners, 64, 64))
+        return np.stack(imgs), np.stack(labs)
+
+    def disk_batch():
+        a, bb, (dx, dy) = disk_train.translated_training_pair(rng, 64, 64)
+        uv_a = rng.uniform(10, [54, 54], (disk_train.DiskTrainConfig()
+                                          .num_samples, 2)).astype(np.float32)
+        return a, bb, uv_a, uv_a + np.array([dx, dy], np.float32)
+
+    def lg_batch():
+        return lightglue_train.synthetic_matching_problem(rng, 64, 64, 256,
+                                                          40)
+
+    trainers = (
+        ("SuperPoint", superpoint_train, SuperPoint, SuperPointConfig(),
+         superpoint_train.SuperPointTrainConfig(),
+         load_superpoint_npz(weights_path("superpoint.npz")), sp_batch,
+         "4 x 64x64 synthetic corners"),
+        ("DISK", disk_train, Disk, DiskConfig(), disk_train.DiskTrainConfig(),
+         load_disk_npz(weights_path("disk.npz")), disk_batch,
+         "64x64 pairs, 128 samples"),
+        ("LightGlue", lightglue_train, LightGlue, LightGlueConfig(),
+         lightglue_train.LightGlueTrainConfig(),
+         load_lightglue_npz(weights_path("lightglue_superpoint.npz")),
+         lg_batch, "64 + 64 keypoints, 40 matched, depth 9"))
+    for name, module, model_cls, mcfg, tr_cfg, state, make, shape in trainers:
+        params = flax_order(state)
+        step_card, tx = module.make_train_step(model_cls(mcfg, device=dev),
+                                               tr_cfg)
+        step_cpu, _ = module.make_train_step(model_cls(mcfg, device="cpu"),
+                                             tr_cfg)
+        opt = tx.init(params)
+        batches = [make() for _ in range(TRAIN_STEPS)]
+        p_d, o_d, l_d = step_card(to_device(params, dev), to_device(opt, dev),
+                                  *batches[0])
+        p_c, o_c, l_c = step_cpu(params, opt, *batches[0])
+        l_d, l_c = (float(x["loss"] if isinstance(x, dict) else x)
+                    for x in (l_d, l_c))
+        print(f"[compare] 9e {name}: loss {l_d:.6f} on the card, {l_c:.6f} "
+              "on the CPU")
+        check(abs(l_d - l_c) <= TRAIN_LOSS_RTOL * abs(l_c),
+              f"9e {name}: losses differ")
+        moments_agree(f"9e {name} trainer, card vs CPU", (p_d, o_d),
+                      (p_c, o_c))
+        mbox, it = [to_device(params, dev), to_device(opt, dev)], [0]
+
+        def mrun():
+            mbox[0], mbox[1], _ = step_card(mbox[0], mbox[1],
+                                            *batches[it[0] % len(batches)])
+            it[0] += 1
+
+        timed_steps(f"9e {name} train step, {shape} (shipped weights)", mrun,
+                    card, TRAIN_STEPS)
+        profile_window(f"{name} train step", mrun, calls=5)
+    t_phase = stage_done("9e (model trainers)", t_phase)
+
+    # 9f. raft_pretrain.main at the full configuration, writing into a
+    # temporary directory.
+    with tempfile.TemporaryDirectory() as tmp:
+        shipped_dir = raft_pretrain.WEIGHTS_DIR
+        raft_pretrain.WEIGHTS_DIR = tmp
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                agg = raft_pretrain.main(steps=20, h=128, w=128, batch=4,
+                                         iters=8, device="cuda")
+        finally:
+            raft_pretrain.WEIGHTS_DIR = shipped_dir
+        print(out.getvalue().rstrip())
+        check("[raft] held-out:" in out.getvalue()
+              and np.isfinite(agg["epe"]), "9f: no held-out line")
+        check(sorted(os.listdir(tmp)) == ["metrics.json", "raft.npz"],
+              f"9f wrote {sorted(os.listdir(tmp))}")
+        load_raft_npz(os.path.join(tmp, "raft.npz"), cfg)
+    check(weights_digest() == weights_before,
+          "a file under weights/ changed during the run")
+    print("[train] 9f weights/ unchanged: every file's sha256 as before the "
+          "run")
+    stage_done("9f (raft_pretrain.main)", t_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1970,6 +2445,7 @@ def main() -> int:
         lssd_track_pyramid_reference,
     )
 
+    weights_before = weights_digest()
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -2349,6 +2825,7 @@ def main() -> int:
     slice_paths(dev, card, frames)
     model_paths(dev, card)
     sharded = parallel_paths(dev, card, rp, cp, uv, opts)
+    train_paths(dev, card, weights_before)
     for k in kernels:
         if k["name"] in sharded:
             k["sharded_launches"] = sharded[k["name"]]

@@ -26,6 +26,15 @@ arrays, one converter per model (``raft_state_from_jax``,
   model = Raft(options_from_jax(jax_cfg), device="cuda")
   model.load_state_dict(raft_state_from_jax(variables))
 
+Training state crosses too, so that both sides can start a step from the
+same state: a RAFT trainer's ``TrainState`` (``train_state_from_jax``),
+and a SuperPoint, DISK or LightGlue trainer's ``(params, opt_state)``
+(``model_train_state_from_jax``), optax's Adam moments in the layout of
+the parameters they belong to:
+
+  state = train_state_from_jax(jax_state, device="cuda")
+  params, opt_state = model_train_state_from_jax(variables, jax_opt_state)
+
 Objects are matched by dataclass name and field names; arrays cross as
 numpy.
 """
@@ -75,6 +84,7 @@ from feature_tracker_tpu_torch.trackers.klt import (
     BasicKlt,
     LssdKlt,
 )
+from feature_tracker_tpu_torch.train.raft_train import TrainState
 
 _PORT_CONFIGS = {cls.__name__: cls for cls in
                  (KltOptions, HarrisOptions, PyramidOptions, FrontEndConfig,
@@ -300,3 +310,70 @@ def cotracker_state_from_jax(variables) -> dict:
     ``[D, H, Dh]`` / ``[H, Dh, D]`` as ``[H*Dh, D]`` / ``[D, H*Dh]``
     weights."""
     return flax_state_from_jax(variables, "CoTracker")
+
+
+def _tensors(variables, model: str, dev) -> dict:
+    """A Flax variables tree's leaves as ``state_dict`` tensors on ``dev``,
+    in Flax's order, without ``num_batches_tracked``."""
+    return {key: tensor.to(dev) for _, key, tensor in
+            flax_leaves_from_jax(variables, model)}
+
+
+def _optax_adam(opt_state):
+    """(``ScaleByAdamState``, its count) of an optax chain of
+    ``clip_by_global_norm`` and ``adamw``; a ``ScaleByScheduleState``'s
+    count must equal Adam's, as it always does in such a chain."""
+    adam, counts = [], []
+
+    def walk(node):
+        if all(hasattr(node, f) for f in ("count", "mu", "nu")):
+            adam.append(node)
+        elif type(node).__name__ == "ScaleByScheduleState":
+            counts.append(int(node.count))
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(opt_state)
+    if len(adam) != 1:
+        raise ValueError(f"expected one optax ScaleByAdamState, found "
+                         f"{len(adam)}")
+    count = int(adam[0].count)
+    if any(c != count for c in counts):
+        raise ValueError(f"the schedule's count {counts} differs from "
+                         f"Adam's {count}")
+    return adam[0], count
+
+
+def _opt_state_from_jax(opt_state, wrap, model: str, dev) -> dict:
+    adam, count = _optax_adam(opt_state)
+    return {"count": torch.tensor(count, dtype=torch.int32, device=dev),
+            "mu": _tensors(wrap(adam.mu), model, dev),
+            "nu": _tensors(wrap(adam.nu), model, dev)}
+
+
+def train_state_from_jax(state, device="cuda") -> TrainState:
+    """The port's ``TrainState`` for a JAX RAFT ``TrainState``: its
+    ``params`` and ``batch_stats`` in the layout of
+    :func:`raft_state_from_jax`, and the optax state's Adam ``mu``, ``nu``
+    and ``count`` as the ``opt_state`` of ``train/optim.py::ClipAdamW``;
+    tensors on ``device``."""
+    dev = torch.device(device)
+    return TrainState(
+        step=torch.tensor(int(state.step), dtype=torch.int32, device=dev),
+        params=_tensors({"params": state.params}, "RAFT", dev),
+        batch_stats=_tensors({"batch_stats": state.batch_stats}, "RAFT",
+                             dev),
+        opt_state=_opt_state_from_jax(state.opt_state,
+                                      lambda t: {"params": t}, "RAFT", dev))
+
+
+def model_train_state_from_jax(variables, opt_state, device="cuda"):
+    """``(params, opt_state)`` of the port's SuperPoint, DISK or LightGlue
+    trainer for a JAX trainer's ``(variables, opt_state)``: the Flax
+    variables tree it optimises (SuperPoint's includes ``batch_stats``) as
+    ``state_dict`` tensors in Flax's order, and optax's Adam state in the
+    same layout; tensors on ``device``."""
+    dev = torch.device(device)
+    return (_tensors(variables, "Flax", dev),
+            _opt_state_from_jax(opt_state, lambda t: t, "Flax", dev))

@@ -1,5 +1,5 @@
-"""DISK detector + descriptor, inference only — the counterpart of
-``feature_tracker_tpu/models/disk.py``.
+"""DISK detector + descriptor, for inference and its trainer — the counterpart
+of ``feature_tracker_tpu/models/disk.py``.
 
  - U-Net trunk: ``depth`` down blocks (two 3x3 convs + 2x2 average pool)
    and matching up blocks (2x bilinear upsample + skip concat + two 3x3
@@ -66,7 +66,8 @@ class Disk(nn.Module):
     """``forward(image)``: image ``[B, H, W, 1]`` in 0..255, H and W
     divisible by 2**cfg.depth. Returns (heatmap ``[B, H, W]``, descriptors
     ``[B, H, W, D]`` unnormalized). Runs on ``device`` (default ``"cuda"``)
-    in ``eval()`` mode."""
+    in ``eval()`` mode, under ``torch.inference_mode`` unless ``grad=True``
+    (the trainer's form)."""
 
     def __init__(self, cfg: DiskConfig = DiskConfig(), device="cuda"):
         super().__init__()
@@ -85,8 +86,8 @@ class Disk(nn.Module):
         x = gelu(getattr(self, f"Conv_{i}")(x))
         return gelu(getattr(self, f"Conv_{i + 1}")(x))
 
-    def forward(self, image):
-        with torch.inference_mode(), full_float32():
+    def forward(self, image, *, grad: bool = False):
+        with torch.inference_mode(not grad), full_float32():
             c = self.cfg
             x = torch.as_tensor(image, dtype=torch.float32,
                                 device=self.device)

@@ -1,5 +1,5 @@
-"""LightGlue attention matcher, inference only — the counterpart of
-``feature_tracker_tpu/models/lightglue.py``.
+"""LightGlue attention matcher, for inference and its trainer — the counterpart
+of ``feature_tracker_tpu/models/lightglue.py``.
 
 Inputs: kpts_ref ``[N, 2]``, desc_ref ``[N, D]``, mask_ref ``[N]`` and the
 same for the current image, plus an optional ``image_hw``.
@@ -175,7 +175,8 @@ class LightGlue(nn.Module):
     image_hw=None)`` returns the ``[N, M]`` log partial-assignment matrix
     (masked entries are NEG_INF) plus the per-side raw matchability logits
     ``[N]``, ``[M]``. Inputs may be numpy arrays or tensors; the model runs
-    on ``device`` (default ``"cuda"``) in ``eval()`` mode."""
+    on ``device`` (default ``"cuda"``) in ``eval()`` mode, under
+    ``torch.inference_mode`` unless ``grad=True`` (the trainer's form)."""
 
     def __init__(self, cfg: LightGlueConfig = LightGlueConfig(),
                  device="cuda"):
@@ -195,8 +196,8 @@ class LightGlue(nn.Module):
         self.eval()
 
     def forward(self, kpts_ref, desc_ref, mask_ref, kpts_cur, desc_cur,
-                mask_cur, image_hw=None):
-        with torch.inference_mode(), full_float32():
+                mask_cur, image_hw=None, *, grad: bool = False):
+        with torch.inference_mode(not grad), full_float32():
             return self._forward(kpts_ref, desc_ref, mask_ref, kpts_cur,
                                  desc_cur, mask_cur, image_hw)
 

@@ -1,4 +1,4 @@
-"""RAFT optical flow, inference only — the counterpart of
+"""RAFT optical flow, inference and training — the counterpart of
 ``feature_tracker_tpu/models/raft.py``.
 
 Same public names, argument order, layouts and return shapes as the Flax
@@ -35,6 +35,15 @@ convolutions compute in float32. ``Raft.forward`` runs with TF32 switched
 off for convolutions and matrix products and restores the caller's
 settings afterwards: TF32 keeps about three decimal digits, which the
 float32 model's agreement with the reference does not survive.
+
+Training (``forward(ref, cur, train=True)``, Flax's ``train=True`` with
+``mutable=["batch_stats"]``): batch normalisation uses the statistics of
+the batch, as Flax computes them, and updates the running statistics in
+place; the feature encoder runs on each image separately, as in the Flax
+model, so each image has its own batch statistics and the running ones
+are updated twice; gradients flow through every refinement iteration (no
+detach between them). The trainers (``train/raft_train.py``) evaluate it
+with ``torch.func.functional_call`` over the tensors of a ``TrainState``.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from feature_tracker_tpu_torch.core.device import resolve_device
+from feature_tracker_tpu_torch.models.layers import divide, flax_order
 from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
     correlation_scale,
     lookup_correlation_cuda,
@@ -110,23 +120,69 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), self.weight.to(dt),
-                     self.bias.to(dt), self.stride, self.padding)
+        x, stride = x.permute(0, 3, 1, 2), self.stride
+        if self.kernel_size == (1, 1) and stride != (1, 1):
+            # The same products as the strided 1x1 convolution; PyTorch's
+            # CPU backward of that one on channels-last input crashes.
+            x, stride = x[:, :, ::stride[0], ::stride[1]], 1
+        y = F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride,
+                     self.padding)
         return y.permute(0, 2, 3, 1)
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Batch normalisation on ``[B, H, W, C]`` by the running statistics
-    (inference only). Flax's ``momentum=0.9`` is ``momentum=0.1`` here."""
+    """Batch normalisation on ``[B, H, W, C]``; Flax's ``momentum=0.9`` is
+    ``momentum=0.1`` here.
+
+    ``train=False`` normalises by the running statistics. Where one of them
+    requires grad (the SuperPoint trainer optimises them, as the JAX one
+    does), the normalisation is written out in Flax's order, since
+    ``F.batch_norm`` does not differentiate them.
+
+    ``train=True`` is Flax's training mode: the batch's mean and biased
+    variance ``E[x^2] - E[x]^2`` (``use_fast_variance``), summed over the
+    ranks of ``mesh`` when one is set (data-parallel training), and the
+    running statistics updated in place to ``0.9 * old + 0.1 * batch``.
+    ``F.batch_norm``'s training mode would update the running variance
+    with the unbiased variance instead."""
+
+    mesh = None
 
     def __init__(self, features):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if train:
+            return self._batch_statistics(x)
+        if self.running_mean.requires_grad or self.running_var.requires_grad:
+            return self._normalize(x, self.running_mean, self.running_var)
         y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
                          self.running_var, self.weight, self.bias, False,
                          0.0, self.eps)
         return y.permute(0, 2, 3, 1)
+
+    def _normalize(self, x, mean, var):
+        """Flax's ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, in
+        float32, returned in ``x``'s dtype."""
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x.float() - mean) * mul + self.bias).to(x.dtype)
+
+    def _batch_statistics(self, x):
+        xf = x.float()
+        count = xf.numel() // xf.shape[-1]
+        sums = torch.stack([xf.sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))])
+        if self.mesh is not None:
+            from feature_tracker_tpu_torch.parallel.mesh import all_reduce_sum
+            sums = all_reduce_sum(self.mesh, sums)
+            count *= self.mesh.size()
+        mean, mean2 = divide(sums, float(count))
+        var = torch.maximum(torch.zeros_like(mean), mean2 - mean * mean)
+        with torch.no_grad():
+            self.running_mean.copy_(0.9 * self.running_mean
+                                    + (1.0 - 0.9) * mean)
+            self.running_var.copy_(0.9 * self.running_var
+                                   + (1.0 - 0.9) * var)
+        return self._normalize(x, mean, var)
 
 
 class ResNetBlock(nn.Module):
@@ -142,11 +198,11 @@ class ResNetBlock(nn.Module):
             self.Conv_2 = Conv(in_features, features, 1, stride, dtype)
             self.BatchNorm_2 = BatchNorm(features)
 
-    def forward(self, x):
-        h = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        h = self.BatchNorm_1(self.Conv_1(h))
+    def forward(self, x, train: bool = False):
+        h = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
+        h = self.BatchNorm_1(self.Conv_1(h), train)
         if self.projects:
-            x = self.BatchNorm_2(self.Conv_2(x))
+            x = self.BatchNorm_2(self.Conv_2(x), train)
         return F.relu(h + x)
 
 
@@ -162,10 +218,10 @@ class FeatureEncoder(nn.Module):
                     ResNetBlock(widths[i], widths[i + 1], 1 + i % 2, dtype))
         self.Conv_1 = Conv(out_channels, out_channels, 3, 1, dtype)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = F.relu(self.Conv_0(x))
         for i in range(6):
-            x = getattr(self, f"ResNetBlock_{i}")(x)
+            x = getattr(self, f"ResNetBlock_{i}")(x, train)
         return F.relu(self.Conv_1(x))
 
 
@@ -404,19 +460,25 @@ def upsample_flow_convex(flow, mask):
 
 
 class Raft(nn.Module):
-    """Full RAFT for inference. ``forward(ref_image, cur_image)`` takes
+    """Full RAFT. ``forward(ref_image, cur_image, train=False)`` takes
     images ``[B, H, W, C]`` with 0..255 gray values (tensors or numpy
     arrays) and returns the per-iteration upsampled flows
     ``[T, B, 8H', 8W', 2]`` with channels (dx, dy); ``T`` is 1 with
-    ``cfg.upsample_last_only``.
+    ``cfg.upsample_last_only``. With ``train=True`` it runs with autograd
+    and batch statistics and returns ``(flows, new_batch_stats)``, the
+    running statistics (``state_dict`` keys, Flax's order) after the call.
 
     The model runs on ``device`` (default ``"cuda"``; raises without a GPU
     unless ``device="cpu"``) in ``eval()`` mode. With ``cfg.low_memory`` the
     per-iteration lookup goes through ``lookup_fn``, which is
     ``lookup_correlation_cuda``: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. The kernel has no backward, so training
+    with ``cfg.low_memory`` raises on the card and takes the differentiable
+    plain version on the CPU. With a ``mesh`` (a data-parallel trainer's),
+    training-mode batch statistics are summed over its ranks."""
 
-    def __init__(self, cfg: RaftConfig = RaftConfig(), device="cuda"):
+    def __init__(self, cfg: RaftConfig = RaftConfig(), device="cuda",
+                 mesh=None):
         super().__init__()
         if cfg.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got "
@@ -430,14 +492,28 @@ class Raft(nn.Module):
             cfg.in_channels, cfg.context_channels + cfg.hidden_channels,
             cfg.dtype)
         self.UpdateBlock_0 = UpdateBlock(cfg)
+        for module in self.modules():
+            if isinstance(module, BatchNorm):
+                module.mesh = mesh
         self.to(self.device).to(memory_format=torch.channels_last)
         self.eval()
 
-    def forward(self, ref_image, cur_image):
-        with torch.inference_mode(), full_float32():
-            return self._forward(ref_image, cur_image)
+    def forward(self, ref_image, cur_image, train: bool = False):
+        if not train:
+            with torch.inference_mode(), full_float32():
+                return self._forward(ref_image, cur_image, False)
+        if self.cfg.low_memory and self.device.type == "cuda":
+            raise ValueError(
+                "RAFT training with low_memory=True: the CUDA lookup kernel "
+                "has no backward; train with low_memory=False (the "
+                "all-pairs volume, as the JAX trainers do)")
+        with full_float32():
+            flows = self._forward(ref_image, cur_image, True)
+        stats = {k: v for k, v in self.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))}
+        return flows, flax_order(stats)
 
-    def _forward(self, ref_image, cur_image):
+    def _forward(self, ref_image, cur_image, train):
         c = self.cfg
         ref, cur = (
             (2.0 * (torch.as_tensor(img, dtype=torch.float32,
@@ -445,17 +521,26 @@ class Raft(nn.Module):
              - 1.0).to(c.dtype) for img in (ref_image, cur_image))
         b = ref.shape[0]
 
-        # Both images in one pass: the statistics are the running ones, so
-        # the batch does not couple its items.
-        fmaps = self.feature_enc(torch.cat([ref, cur])).float().contiguous()
-        fmap0, fmap1 = fmaps[:b], fmaps[b:]
-        ctx = self.context_enc(ref)
+        if train:
+            # One call per image, as in the Flax model: each has its own
+            # batch statistics, and the second reads the running statistics
+            # as the first left them.
+            fmap0 = self.feature_enc(ref, True).float()
+            fmap1 = self.feature_enc(cur, True).float()
+        else:
+            # Both images in one pass: the statistics are the running ones,
+            # so the batch does not couple its items.
+            fmaps = self.feature_enc(torch.cat([ref, cur])).float()
+            fmaps = fmaps.contiguous()
+            fmap0, fmap1 = fmaps[:b], fmaps[b:]
+        ctx = self.context_enc(ref, train)
         inp = ctx[..., :c.context_channels]
         net = ctx[..., c.context_channels:]
 
         if c.low_memory:
             fpyr = [f.contiguous() for f in pool_feature_pyramid(
                 fmap1, c.correlation_pyramid_levels)]
+            lookup = lookup_correlation_otf if train else self.lookup_fn
         else:
             pyramid = compute_correlation_pyramid(
                 fmap0, fmap1, c.correlation_pyramid_levels)
@@ -471,8 +556,7 @@ class Raft(nn.Module):
         predictions = []
         for _ in range(c.max_iterations):
             if c.low_memory:
-                corr = self.lookup_fn(fmap0, fpyr, cur_locs,
-                                      c.correlation_radius)
+                corr = lookup(fmap0, fpyr, cur_locs, c.correlation_radius)
             else:
                 corr = lookup_correlation(pyramid, cur_locs,
                                           c.correlation_radius)

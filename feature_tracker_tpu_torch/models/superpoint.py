@@ -1,5 +1,5 @@
-"""SuperPoint detector + descriptor, inference only — the counterpart of
-``feature_tracker_tpu/models/superpoint.py``.
+"""SuperPoint detector + descriptor, for inference and its trainer — the counterpart
+of ``feature_tracker_tpu/models/superpoint.py``.
 
  - shared VGG-style encoder: [64,64]-pool-[64,64]-pool-[128,128]-pool-
    [128,128] -> H/8 x W/8, each convolution followed by batch
@@ -49,7 +49,9 @@ class SuperPoint(nn.Module):
     """``forward(image)``: image ``[B, H, W, 1]`` in 0..255. Returns
     (heatmap ``[B, H, W]``, dense descriptors ``[B, H/8, W/8, D]``,
     unnormalized). Runs on ``device`` (default ``"cuda"``; raises without a
-    GPU unless ``device="cpu"``) in ``eval()`` mode."""
+    GPU unless ``device="cpu"``) in ``eval()`` mode, under
+    ``torch.inference_mode`` unless ``grad=True`` (the trainer's form: the
+    running statistics then may require grad, see ``BatchNorm``)."""
 
     def __init__(self, cfg: SuperPointConfig = SuperPointConfig(),
                  device="cuda"):
@@ -75,12 +77,13 @@ class SuperPoint(nn.Module):
         x = getattr(self, f"Conv_{conv}")(x)
         return F.relu(getattr(self, f"BatchNorm_{norm}")(x))
 
-    def forward(self, image, train: bool = False):
+    def forward(self, image, train: bool = False, *, grad: bool = False):
         if train:
             raise NotImplementedError(
                 "SuperPoint's training mode (batch statistics) is not "
-                "ported; the port runs inference on the running statistics")
-        with torch.inference_mode(), full_float32():
+                "ported; the port runs on the running statistics (its "
+                "trainer, as the JAX one, optimises them with train=False)")
+        with torch.inference_mode(not grad), full_float32():
             x = torch.as_tensor(image, dtype=torch.float32,
                                 device=self.device)
             x = divide(x, 255.0).to(self.cfg.dtype)

@@ -158,6 +158,26 @@ def _all_reduce(mesh: DeviceMesh, tensor: torch.Tensor) -> torch.Tensor:
     return tensor
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, mesh):
+        ctx.mesh = mesh
+        return _all_reduce(mesh, tensor.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(ctx.mesh, grad.clone()), None
+
+
+def all_reduce_sum(mesh: DeviceMesh, tensor: torch.Tensor) -> torch.Tensor:
+    """The sum of ``tensor`` over every rank of the mesh, as a new tensor
+    that autograd differentiates: the gradient that reaches it is summed
+    over the ranks too, so each rank's input gets the gradient of the sum
+    of every rank's loss. Both directions go through :func:`_all_reduce`
+    (counted by :func:`comm_stats`)."""
+    return _AllReduceSum.apply(tensor, mesh)
+
+
 def _all_gather(mesh: DeviceMesh, tensor: torch.Tensor) -> torch.Tensor:
     """Concatenate every rank's ``tensor`` along dim 0, rank-major in the
     mesh's flattened order."""

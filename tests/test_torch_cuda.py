@@ -1113,3 +1113,125 @@ def test_make_mesh_without_a_card_raises(card):
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert out.returncode != 0
     assert "device='cpu'" in out.stderr
+
+
+# --------------------------------------------------------------- training
+# One train step on the card against the same step on the CPU from the
+# same state, by chip_smoke.py's rules (``train_state_agree``: the loss
+# within 1e-4 relative, the clipped gradients read from Adam's first
+# moments within 1e-3 of each leaf's largest, the parameters where the
+# gradient counts, the batch statistics).
+TRAIN_TINY = raft.RaftConfig(max_iterations=2, feature_channels=16,
+                             context_channels=16, hidden_channels=8,
+                             correlation_pyramid_levels=2,
+                             correlation_radius=1,
+                             correlation_hidden_channels=8,
+                             correlation_out_channels=4,
+                             flow_hidden_channels=4, flow_out_channels=4,
+                             motion_out_channels=4, mask_hidden_channels=8)
+
+
+def _flow_batch(seed=0, b=2, h=32, w=48):
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0, 255, (b, h + 8, w + 8)).astype(np.float32)
+    ref, cur = base[:, 4:h + 4, 4:w + 4, None], base[:, 6:h + 6, 3:w + 3, None]
+    gt = np.broadcast_to(np.float32([1.0, -2.0]), (b, h, w, 2)).copy()
+    return ref, cur, gt
+
+
+@pytest.mark.parametrize("kind", ["supervised", "unsupervised"])
+def test_raft_train_step_card_matches_cpu(card, kind):
+    from chip_smoke import train_state_agree
+    from feature_tracker_tpu_torch.train import raft_train
+
+    tcfg = raft_train.RaftTrainConfig()
+    start = raft_train.create_train_state(0, TRAIN_TINY, tcfg, None,
+                                          device="cpu")
+    ref, cur, gt = _flow_batch()
+    if kind == "supervised":
+        step, batch = raft_train.make_train_step(TRAIN_TINY, tcfg), (ref, cur,
+                                                                     gt)
+    else:
+        step = raft_train.make_unsup_train_step(TRAIN_TINY, tcfg)
+        batch = (ref, cur)
+    on_card = start.to(card)
+    got, got_m = step(on_card, *batch)
+    want, want_m = step(start, *batch)
+    assert got.params[next(iter(got.params))].device.type == card.type
+    train_state_agree(f"{kind} step", got, want, got_m, want_m)
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(on_card.leaves(), start.leaves()))
+
+
+def test_raft_training_with_low_memory_raises_on_the_card(card):
+    """The CUDA lookup kernel has no backward: training with
+    low_memory=True on the card raises instead of giving a zero gradient
+    through the correlation."""
+    import dataclasses
+
+    from feature_tracker_tpu_torch.train import raft_train
+
+    cfg = dataclasses.replace(TRAIN_TINY, low_memory=True)
+    ref, cur, gt = _flow_batch()
+    with pytest.raises(ValueError, match="low_memory"):
+        raft.Raft(cfg)(ref, cur, train=True)
+    tcfg = raft_train.RaftTrainConfig()
+    state = raft_train.create_train_state(0, cfg, tcfg, None, device=card)
+    with pytest.raises(ValueError, match="low_memory"):
+        raft_train.make_train_step(cfg, tcfg)(state, ref, cur, gt)
+
+
+@pytest.mark.parametrize("name", ["superpoint", "disk", "lightglue"])
+def test_model_trainer_step_card_matches_cpu(card, name):
+    from chip_smoke import moments_agree
+    from feature_tracker_tpu_torch.models.disk import Disk, DiskConfig
+    from feature_tracker_tpu_torch.models.layers import flax_init_, flax_order
+    from feature_tracker_tpu_torch.models.lightglue import (
+        LightGlue,
+        LightGlueConfig,
+    )
+    from feature_tracker_tpu_torch.models.superpoint import (
+        SuperPoint,
+        SuperPointConfig,
+    )
+    from feature_tracker_tpu_torch.train import (
+        disk_train,
+        lightglue_train,
+        superpoint_train,
+    )
+
+    rng = np.random.default_rng(3)
+    if name == "superpoint":
+        module, cls, cfg = superpoint_train, SuperPoint, SuperPointConfig(
+            descriptor_dim=32)
+        tcfg = module.SuperPointTrainConfig()
+        imgs, labs = zip(*(module.synthetic_corners_image(rng, 32, 32)
+                           for _ in range(2)))
+        batch = (np.stack(imgs)[..., None],
+                 np.stack([module.corner_label_map(c, 32, 32) for c in labs]))
+    elif name == "disk":
+        module, cls, cfg = disk_train, Disk, DiskConfig(
+            descriptor_dim=16, base_channels=8, depth=2)
+        tcfg = module.DiskTrainConfig(num_samples=24)
+        a, b, (dx, dy) = module.translated_training_pair(rng, 32, 32)
+        uv = rng.uniform(6, 26, (24, 2)).astype(np.float32)
+        batch = (a, b, uv, uv + np.float32([dx, dy]))
+    else:
+        module, cls, cfg = lightglue_train, LightGlue, LightGlueConfig(
+            descriptor_dim=16, model_dim=32, num_heads=2, depth=2)
+        tcfg = module.LightGlueTrainConfig()
+        batch = module.synthetic_matching_problem(rng, 24, 24, 16, 14)
+    model_cpu = flax_init_(cls(cfg, device="cpu"), 4)
+    params = {k: v.clone() for k, v in
+              flax_order(model_cpu.state_dict()).items()}
+    step_cpu, tx = module.make_train_step(model_cpu, tcfg)
+    step_card, _ = module.make_train_step(cls(cfg, device=card), tcfg)
+    opt = tx.init(params)
+    p_d, o_d, _ = step_card({k: v.to(card) for k, v in params.items()},
+                            {"count": opt["count"].to(card),
+                             "mu": {k: v.to(card) for k, v in
+                                    opt["mu"].items()},
+                             "nu": {k: v.to(card) for k, v in
+                                    opt["nu"].items()}}, *batch)
+    p_c, o_c, _ = step_cpu(params, opt, *batch)
+    moments_agree(name, (p_d, o_d), (p_c, o_c))

@@ -35,6 +35,7 @@ from feature_tracker_tpu_torch.convert import (
     ba_options_from_jax,
     sliding_window_from_jax,
     tracker_from_jax,
+    train_state_from_jax,
     window_config_from_jax,
 )
 from feature_tracker_tpu_torch.parallel import ba, mesh as pmesh, scaling
@@ -49,9 +50,14 @@ from feature_tracker_tpu_torch.trackers.direct import (
     DirectMethodMode,
     DirectMethodOptions,
 )
+from feature_tracker_tpu_torch.train import raft_train as prt
+from feature_tracker_tpu_torch.train.raft_train import data_parallel_case
+from feature_tracker_tpu.train import raft_train as jrt
 
 from synthetic import translated_pair
 from test_parallel import _synthetic_ba
+from test_torch_train_raft import PTINY, TINY, assert_step_close, batch
+from test_torch_train_raft_steps import jax_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KLT_UV_TOL = {"BasicKlt": 1e-3, "AffineKlt": 5e-3, "LssdKlt": 5e-3}
@@ -122,12 +128,23 @@ BA_OPTS = jba.BaOptions(max_iterations=3, num_fixed_poses=2)
 LAUNCHER_BA = ba.BaOptions(max_iterations=10, num_fixed_poses=2)
 
 
+# The two-rank result of the data-parallel RAFT train step.
+TRAIN_CASE = 1 + len(KLT_TRACKERS) + len(DirectMethodMode)
+
+
+@functools.lru_cache(maxsize=1)
+def _train_problem():
+    """A JAX TrainState of the TINY RAFT and a batch of 4."""
+    return jax_state(TINY, jrt.RaftTrainConfig()), batch(seed=21, b=4)
+
+
 # ------------------------------------------------------------ two ranks
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     """Every two-rank case, run once by two spawned gloo ranks: the
     features' slices, sharded KLT (each tracker and the global cap),
-    sharded direct method (each mode), sharded BA."""
+    sharded direct method (each mode), one data-parallel RAFT train step
+    (with a checkpoint through the mesh), sharded BA."""
     _, (rp, cp), uv = _klt_scene()
     _, (drp, dcp), k4, p_ref, duv = _direct_scene()
     cases = [(par.shard_features,
@@ -138,6 +155,12 @@ def two_ranks(tmp_path_factory):
     cases += [(functools.partial(par.track_direct_sharded, DirectMethod(
         DirectMethodOptions(method=m), device="cpu")),
         (drp, dcp, k4, p_ref, duv)) for m in DirectMethodMode]
+    js, batch4 = _train_problem()
+    cases.append((functools.partial(
+        data_parallel_case,
+        checkpoint_dir=str(tmp_path_factory.mktemp("ckpt"))),
+        (PTINY, prt.RaftTrainConfig(), train_state_from_jax(js, device="cpu"),
+         *batch4)))
     cases.append((ba_case, (_ba_problem(), ba_options_from_jax(BA_OPTS))))
     cases.append((ba_case, (scaling._make_problem(65536, 4, 8), LAUNCHER_BA)))
     store = tmp_path_factory.mktemp("gloo_store")
@@ -375,6 +398,47 @@ def test_bundle_adjust_on_two_ranks(two_ranks, mesh):
         (iters + 1) * 8
     np.testing.assert_array_equal(two_ranks[0][-2]["q"],
                                   two_ranks[1][-2]["q"])
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.as_tensor(tree)
+
+
+def test_data_parallel_train_step_on_two_ranks(two_ranks):
+    """The batch of 4 split 2 + 2 over two gloo ranks gives the one-rank
+    step on the whole batch and JAX's step jitted over a ("data", "model")
+    mesh of two CPU devices (batch norm statistics, loss and gradient over
+    the whole batch), by tests/test_torch_train_raft.py's rules; the ranks
+    agree bit for bit. The all-reduces are the batch norms' statistics, the
+    loss, the EPE and one flat gradient; the mesh's checkpoint is written
+    once and restored on both ranks."""
+    from chip_smoke import expected_train_all_reduces
+
+    js, (ref, cur, gt) = _train_problem()
+    tcfg = jrt.RaftTrainConfig()
+    one, m_one = prt.make_train_step(PTINY, prt.RaftTrainConfig())(
+        train_state_from_jax(js, device="cpu"), ref, cur, gt)
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:2]).reshape(2, 1),
+                              ("data", "model"))
+    js1, jm = jrt.make_train_step(TINY, tcfg, mesh=jmesh)(js, ref, cur, gt)
+    calls, nbytes = expected_train_all_reduces(
+        PTINY, sum(v.numel() for v in one.params.values()))
+    results = [dict(r[TRAIN_CASE]) for r in two_ranks]
+    for got in results:
+        got["state"] = prt.TrainState(**_tensors(got["state"]))
+        for key in ("loss", "epe"):
+            np.testing.assert_allclose(got[key], float(m_one[key]), rtol=1e-5)
+            np.testing.assert_allclose(got[key], float(jm[key]), rtol=1e-5)
+        assert_step_close(got["state"], one)
+        assert_step_close(got["state"], js1)
+        assert (got["all_reduce_calls"], got["all_reduce_bytes"]) == (
+            calls, nbytes)
+        assert got["restored_equal"]
+    assert [r["saved"] for r in results] == [True, True]
+    a, b = (r["state"] for r in results)
+    assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
 
 
 def test_launcher_problem_on_two_ranks_within_its_float32_floor(two_ranks):
