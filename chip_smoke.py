@@ -127,9 +127,39 @@ Phases (any failed check raises, so the exit code is non-zero):
      ``raft_pretrain.main(steps=20, h=128, w=128, batch=4, iters=8)``
      writing into a temporary directory, its held-out line printed, and
      every file under ``weights/`` byte for byte as before the run.
+ 10. Pretraining (``train/pretrain.py``, ``train/cotracker_pretrain.py``),
+     each sub-phase timed, TF32 off, every step held to the same step on
+     the CPU from the same state by phase 9's rules, within twice the
+     CPU's own one-ulp spread where that is larger, then 20 steps timed
+     (CUDA events: ms per step, peak memory; torch.profiler: the device's
+     idle share): the pools of ``adapt_superpoint`` (Harris labels on the
+     card, with and without point descriptors) and
+     ``distill_superpoint_from_disk`` (DISK labels, the DISK teacher's
+     targets) at 4 x 96x96, built by the stages; (a) SuperPoint's training
+     mode (``train=True``) on them from ``weights/superpoint.npz``: outputs
+     and the new running statistics; (b) the SuperPoint step with
+     ``point_desc`` off and on and the distillation step; (c) the DISK step
+     (192 samples at 96x96) and ``train_disk``, the LightGlue step at
+     ``train_lightglue``'s defaults (160x160, 192 keypoints, depth 9) on the
+     shipped SuperPoint's detections, ``train_lightglue`` and
+     ``evaluate_matching`` on 4 pairs; (d) ``reference_pair_counts`` and
+     ``reference_pair_lightglue_counts`` with the shipped detector (300
+     keypoints) and LightGlue on the synthetic 752x480 pair put in place of
+     the reference pair, one FAST-kernel launch per ``_klt_verified``
+     (counted), the raw counts equal to the CPU's and the verified ones
+     within phase 2's status rule; (e) CoTracker's train step with the
+     parameter average at the shipped run's configuration and weights
+     (4 clips of 8x96x96, 24 points): its loss, and every Adam moment 0 on
+     both sides (the global gradient norm overflows float32); at one
+     refinement iteration, where every leaf has a finite gradient that is
+     not 0, its moments; (f) ``pretrain.main`` and
+     ``cotracker_pretrain.main`` with two or three steps per stage at full
+     width into a temporary directory: JAX's files and ``metrics.json``
+     keys, and every file under ``weights/`` as before.
 Then one JSON line with the kernels of the paths (kernels 1, 3 and 4 also
-with their launches on the sharded paths), the card's name and power limit,
-and as the last line ``{"ok": true, "device": {...}}``.
+with their launches on the sharded paths, kernel 1 with those of phase
+10d), the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and outside a checkout of the
 repository (the port and its kernel sources are imported from beside this
@@ -138,6 +168,7 @@ file).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -241,6 +272,24 @@ TRAIN_ZERO_GRAD = 1e-5          # of the largest, where the gradient is 0
 TRAIN_PARAM_TOL = 1e-6          # where |g| counts (moments_agree)
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_STATS_RTOL, TRAIN_STATS_ATOL = 1e-4, 1e-5
+# Phase 10: the pretraining stages. train_superpoint's batch and images;
+# the pool entries built per SuperPoint step kind; train_lightglue's
+# defaults (height, width, keypoints, depth); the shipped CoTracker run's
+# batch, frames, height, width and points (weights/metrics.json); the
+# reference-pair counts' keypoints and the share of KLT statuses that may
+# differ between the card and the CPU (phase 2's rule). SuperPoint's
+# training mode on the card against the CPU: the heatmap absolutely, the
+# descriptors relative to their largest.
+PRE_SHAPE = (4, 96, 96)
+PRE_POOL = 8
+LG_PRE = (160, 160, 192, 9)
+COT_TRAIN = (4, 8, 96, 96, 24)
+PRE_COUNT_CAP = 300
+KLT_STATUS_SHARE = 1e-3
+SP_TRAIN_HEAT_TOL, SP_TRAIN_DESC_TOL = 1e-5, 1e-4
+# pretrain.main's metrics.json keys without the reference pair (phase 10f).
+PRETRAIN_KEYS = ["superpoint", "superpoint_adapt", "disk", "lightglue",
+                 "heldout", "lightglue_disk", "heldout_disk", "wall_s"]
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
@@ -2019,7 +2068,11 @@ def moments_agree(label, got, want, zero=(), spread=None):
                     + TRAIN_GRAD_FLOOR * top)
             lim = max(base, 2.0 * spread[moment])
             by_spread += lim > base
-            ratios.append((float((go[moment][k] - w).abs().max()) / lim, k))
+            d = float((go[moment][k] - w).abs().max())
+            # A limit of 0: every moment is 0 on the CPU (the clipped
+            # gradient is 0 where the global norm overflows float32).
+            ratios.append((d / lim if lim > 0 else
+                           (np.inf if d > 0 else 0.0), k))
         worst[moment] = max(ratios)[0]
         if worst[moment] > 1:
             print(f"[compare] {label}: {moment} beyond its limit: " + ", ".join(
@@ -2056,26 +2109,41 @@ def moments_agree(label, got, want, zero=(), spread=None):
     return norms
 
 
-def train_spread(step, start, batch):
-    """How far the Adam moments after one CPU step move, in any leaf, when
-    the images (the first two inputs) or the parameters move by one ulp:
-    ``{"mu": max |d|, "nu": max |d|}``. The full RAFT's gradient is
-    discontinuous (the cells of the bilinear taps, ReLUs), and such a move
-    crosses some of its kinks, which shifts small leaves, such as the
-    encoders', by up to a few percent of their own largest value (on the
-    CPU and on an H100 alike); the card's rounding crosses others."""
+def step_spread(step, params, opt_state, batch, nudged):
+    """How far the Adam moments after one CPU step of ``(params,
+    opt_state, *batch) -> (params, opt_state, ...)`` move, in any leaf,
+    when the inputs at the positions ``nudged`` (the images) or the
+    parameters move by one ulp: ``{"mu": max |d|, "nu": max |d|}``. The
+    full RAFT's gradient is discontinuous (the cells of the bilinear taps,
+    ReLUs), and such a move crosses some of its kinks, which shifts small
+    leaves, such as the encoders', by up to a few percent of their own
+    largest value (on the CPU and on an H100 alike); the card's rounding
+    crosses others."""
     def up(t):
+        t = torch.as_tensor(t)
         return torch.nextafter(t, torch.full_like(t, np.inf))
 
-    cpu = [torch.as_tensor(t).cpu() for t in batch]
-    base, _ = step(start, *cpu)
-    moved_params = {k: up(v) for k, v in start.params.items()}
-    others = [step(start, *[up(t) if i < 2 else t for i, t in
-                            enumerate(cpu)])[0],
-              step(start.replace(params=moved_params), *cpu)[0]]
-    return {m: max(float((o.opt_state[m][k] - v).abs().max())
-                   for o in others for k, v in base.opt_state[m].items())
+    base = step(params, opt_state, *batch)[1]
+    others = [step(params, opt_state, *[up(t) if i in nudged else t
+                                        for i, t in enumerate(batch)])[1],
+              step({k: up(v) for k, v in params.items()}, opt_state,
+                   *batch)[1]]
+    return {m: max(float((o[m][k] - v).abs().max())
+                   for o in others for k, v in base[m].items())
             for m in ("mu", "nu")}
+
+
+def train_spread(step, start, batch):
+    """``step_spread`` of a RAFT step ``(TrainState, *batch) ->
+    (TrainState, metrics)`` from ``start``, the images being the first two
+    inputs."""
+    def run(params, opt_state, *b):
+        state = step(start.replace(params=params, opt_state=opt_state),
+                     *b)[0]
+        return state.params, state.opt_state
+
+    return step_spread(run, start.params, start.opt_state,
+                       [torch.as_tensor(t).cpu() for t in batch], (0, 1))
 
 
 def train_state_agree(label, got, want, got_m, want_m, spread=None):
@@ -2404,6 +2472,434 @@ def train_paths(dev, card, weights_before):
     print("[train] 9f weights/ unchanged: every file's sha256 as before the "
           "run")
     stage_done("9f (raft_pretrain.main)", t_phase)
+
+
+# -------------------------------------------------------------- phase 10
+def captured_pools(stage, *args, **kw):
+    """Run a SuperPoint pretraining stage (``adapt_superpoint``,
+    ``distill_superpoint_from_disk``) with its training loop replaced by
+    one that keeps the pool it is given and trains nothing: the pools as
+    the stage builds them, on its model's device."""
+    from feature_tracker_tpu_torch.train import pretrain
+
+    pools, loop = [], pretrain._sp_train_loop
+
+    def keep(step, params, opt_state, pool, *rest):
+        pools.append(pool)
+        return params, opt_state, []
+
+    pretrain._sp_train_loop = keep
+    try:
+        stage(*args, **kw)
+    finally:
+        pretrain._sp_train_loop = loop
+    return pools
+
+
+def pool_batches(pool, batch):
+    """The pool's entries stacked ``batch`` at a time, in order, as
+    ``_sp_train_loop`` stacks them (numpy)."""
+    return [[np.stack([e[i] for e in pool[j:j + batch]])
+             for i in range(len(pool[0]))]
+            for j in range(0, len(pool) - batch + 1, batch)]
+
+
+def disk_pretrain_batch(rng, h, w, samples):
+    """One ``train_disk`` input as it draws it: a warped texture pair and
+    ``samples`` correspondences, degenerate where they leave the image."""
+    from feature_tracker_tpu_torch.train.pretrain import warped_texture_pair
+
+    a, b, warp = warped_texture_pair(rng, h, w, max_theta=0.12,
+                                     max_shift=8.0)
+    margin = 14
+    uv_a = rng.uniform(margin, [w - margin, h - margin],
+                       (samples, 2)).astype(np.float32)
+    uv_b = warp(uv_a).astype(np.float32)
+    keep = ((uv_b[:, 0] > 2) & (uv_b[:, 0] < w - 3)
+            & (uv_b[:, 1] > 2) & (uv_b[:, 1] < h - 3))
+    uv_a[~keep] = margin
+    uv_b[~keep] = margin
+    return a, b, uv_a, uv_b
+
+
+def step_card_vs_cpu(label, dev, step_card, step_cpu, params, opt_state,
+                     batch, nudged):
+    """One step on the card against the same step on the CPU from the same
+    state (``moments_agree``, within twice the CPU's one-ulp spread where
+    that is larger; the loss within TRAIN_LOSS_RTOL), and the card's
+    state after it."""
+    p_d, o_d, l_d = step_card(to_device(params, dev),
+                              to_device(opt_state, dev),
+                              *to_device(tuple(batch), dev))[:3]
+    p_c, o_c, l_c = step_cpu(params, opt_state, *batch)[:3]
+    spread = step_spread(step_cpu, params, opt_state, batch, nudged)
+    l_d, l_c = float(l_d), float(l_c)
+    print(f"[compare] {label}: loss {l_d:.6f} on the card, {l_c:.6f} on the "
+          "CPU")
+    check(abs(l_d - l_c) <= TRAIN_LOSS_RTOL * abs(l_c),
+          f"{label}: losses differ")
+    moments_agree(label, (p_d, o_d), (p_c, o_c), spread=spread)
+    return p_d, o_d
+
+
+def timed_model_steps(label, dev, step, params, opt_state, batches, card):
+    """TRAIN_STEPS steps of ``step`` on the card over ``batches`` (moved
+    there first): ms per step and peak memory (``timed_steps``), and the
+    device's idle share over five more (``profile_window``)."""
+    batches = [to_device(tuple(b), dev) for b in batches]
+    box, it = [to_device(params, dev), to_device(opt_state, dev)], [0]
+
+    def run():
+        out = step(box[0], box[1], *batches[it[0] % len(batches)])
+        box[0], box[1] = out[0], out[1]
+        it[0] += 1
+
+    ms, peak = timed_steps(label, run, card, TRAIN_STEPS)
+    profile_window(label, run, calls=5)
+    return ms, peak
+
+
+def pretrain_paths(dev, card, weights_before):
+    """Phase 10 (see the module docstring): the pretraining stages of
+    ``train/pretrain.py`` and ``train/cotracker_pretrain.py`` on the card,
+    each step held to the CPU's; returns kernel 1's launches in the
+    reference-pair counts."""
+    import contextlib
+    import io
+    import tempfile
+
+    from synthetic import translated_pair
+
+    from feature_tracker_tpu_torch.models.cotracker import CoTracker
+    from feature_tracker_tpu_torch.models.disk import Disk, DiskConfig
+    from feature_tracker_tpu_torch.models.layers import flax_order
+    from feature_tracker_tpu_torch.models.lightglue import (
+        LightGlue,
+        LightGlueConfig,
+    )
+    from feature_tracker_tpu_torch.models.superpoint import (
+        SuperPoint,
+        SuperPointDetector,
+    )
+    from feature_tracker_tpu_torch.ops import cuda_klt
+    from feature_tracker_tpu_torch.train import cotracker_pretrain, pretrain
+    from feature_tracker_tpu_torch.train.disk_train import (
+        DiskTrainConfig,
+        make_train_step,
+    )
+    from feature_tracker_tpu_torch.train.optim import (
+        ClipAdamW,
+        warmup_cosine_schedule,
+    )
+    from feature_tracker_tpu_torch.utils.weights import (
+        load_cotracker_npz,
+        load_disk_npz,
+        load_lightglue_npz,
+        load_superpoint_npz,
+        shipped_cotracker_config,
+        weights_path,
+    )
+
+    t_phase = time.perf_counter()
+    b, h, w = PRE_SHAPE
+    sp_state = flax_order(load_superpoint_npz(weights_path("superpoint.npz")))
+    sp_card = SuperPoint(device=dev)
+    sp_cpu = SuperPoint(device="cpu")
+
+    # 10b's pools first: adapt_superpoint's (Harris labels, with and without
+    # point descriptors) and distill_superpoint_from_disk's (DISK labels
+    # and teacher targets), built on the card by the stages themselves.
+    pools = {pd: captured_pools(pretrain.adapt_superpoint, sp_card,
+                                sp_state, rounds=1, steps=0, h=h, w=w,
+                                batch=b, pool_size=PRE_POOL,
+                                point_desc=pd)[0]
+             for pd in (False, True)}
+    pools["distill"] = captured_pools(
+        pretrain.distill_superpoint_from_disk, sp_card, sp_state, steps=0,
+        h=h, w=w, batch=b, pool_size=PRE_POOL)[0]
+    t_phase = stage_done("10 pools (adapt_superpoint, distill_superpoint_"
+                         "from_disk; Harris and DISK labels on the card)",
+                         t_phase)
+
+    # 10a. SuperPoint's training mode, 4 x 96x96, from the shipped weights.
+    images = np.stack([e[0] for e in pools[True][:b]])
+    sp_card.load_state_dict(sp_state)
+    sp_cpu.load_state_dict(sp_state)
+    (heat_d, desc_d), stats_d = sp_card(images, train=True)
+    (heat_c, desc_c), stats_c = sp_cpu(images, train=True)
+    d_heat = float((heat_d.detach().cpu() - heat_c.detach()).abs().max())
+    d_desc = float((desc_d.detach().cpu() - desc_c.detach()).abs().max())
+    d_desc /= float(desc_c.detach().abs().max())
+    d_stats = max(float(((stats_d[k].cpu() - v).abs()
+                         - TRAIN_STATS_RTOL * v.abs()).max())
+                  for k, v in stats_c.items())
+    print(f"[compare] 10a SuperPoint train=True {b} x {h}x{w}, card vs CPU: "
+          f"heatmap within {d_heat:.3g}, descriptors within {d_desc:.3g} of "
+          f"their largest, {len(stats_c)} new running statistics within "
+          f"{TRAIN_STATS_RTOL:g} relative + {d_stats:.3g}")
+    check(list(stats_d) == list(stats_c) and len(stats_c) == 20,
+          "10a: the new statistics differ in layout")
+    check(d_heat <= SP_TRAIN_HEAT_TOL and d_desc <= SP_TRAIN_DESC_TOL
+          and d_stats <= TRAIN_STATS_ATOL, "10a: training mode differs")
+    x = torch.from_numpy(images).to(dev)
+
+    def sp_forward():
+        sp_card(x, train=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(sp_forward, repeats=TRAIN_STEPS - 3, warmup=3)
+    print(f"[train] 10a SuperPoint train=True forward {b} x {h}x{w}: {ms:.4f} "
+          f"ms per call (CUDA events); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB; card "
+          f"{card}")
+    profile_window("10a SuperPoint train=True forward", sp_forward, calls=5)
+    t_phase = stage_done("10a (SuperPoint training mode)", t_phase)
+
+    # 10b. The SuperPoint steps at train_superpoint's shape.
+    hc, wc = h // 8, w // 8
+    for kind in (False, True, "distill"):
+        tx = ClipAdamW(2e-4 if kind == "distill" else 1e-4,
+                       weight_decay=1e-5)
+        if kind == "distill":
+            make = pretrain._make_sp_distill_step
+            card_step, cpu_step = (make(m, tx) for m in (sp_card, sp_cpu))
+            label = "distillation step"
+        else:
+            card_step, cpu_step = (
+                pretrain._make_sp_step(m, tx, hc, wc, point_desc=kind)
+                for m in (sp_card, sp_cpu))
+            label = f"step, point_desc={kind}"
+        batches = pool_batches(pools[kind], b)
+        opt = tx.init(sp_state)
+        step_card_vs_cpu(f"10b SuperPoint {label}, {b} x {h}x{w}, card vs "
+                         "CPU", dev, card_step, cpu_step, sp_state, opt,
+                         batches[0], (0, 1))
+        timed_model_steps(f"10b SuperPoint {label}, {b} x {h}x{w} (shipped "
+                          "weights)", dev, card_step, sp_state, opt, batches,
+                          card)
+    t_phase = stage_done("10b (SuperPoint steps)", t_phase)
+
+    # 10c. DISK (192 samples at 96x96), LightGlue at train_lightglue's
+    # defaults on the shipped SuperPoint detector, evaluate_matching.
+    rng = np.random.default_rng(10)
+    disk_state = flax_order(load_disk_npz(weights_path("disk.npz")))
+    tcfg = DiskTrainConfig(num_samples=192, learning_rate=1e-3)
+    d_card, tx = make_train_step(Disk(DiskConfig(), device=dev), tcfg)
+    d_cpu, _ = make_train_step(Disk(DiskConfig(), device="cpu"), tcfg)
+    batches = [disk_pretrain_batch(rng, h, w, 192) for _ in range(4)]
+    opt = tx.init(disk_state)
+    step_card_vs_cpu(f"10c DISK step, {h}x{w} pair, 192 samples, card vs "
+                     "CPU", dev, d_card, d_cpu, disk_state, opt, batches[0],
+                     (0, 1))
+    timed_model_steps(f"10c DISK step, {h}x{w} pair, 192 samples (shipped "
+                      "weights)", dev, d_card, disk_state, opt, batches, card)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        _, _, hist = pretrain.train_disk(steps=3, h=h, w=w,
+                                         init_params=disk_state, device=dev)
+    check(all(np.isfinite(x["loss"]) for x in hist), "10c train_disk")
+
+    lh, lw, n_kpts, depth = LG_PRE
+    sp_det = SuperPointDetector(sp_state, max_features=n_kpts,
+                                min_response=0.01, device=dev)
+    lcfg = LightGlueConfig(depth=depth)
+    lg_state = flax_order(load_lightglue_npz(
+        weights_path("lightglue_superpoint.npz"), lcfg))
+    tx = ClipAdamW(1e-4, weight_decay=1e-5)
+    lg_card = LightGlue(lcfg, device=dev)
+    l_card = pretrain._make_lightglue_step(lg_card, tx)
+    l_cpu = pretrain._make_lightglue_step(LightGlue(lcfg, device="cpu"), tx)
+    samples = [to_device(pretrain.make_lightglue_sample(
+        sp_det, rng, lh, lw, n_kpts), "cpu") for _ in range(4)]
+    matched = [int((s[-1] >= 0).sum()) for s in samples]
+    opt = tx.init(lg_state)
+    step_card_vs_cpu(f"10c LightGlue step, {n_kpts} + {n_kpts} keypoints of "
+                     f"{lh}x{lw} pairs ({matched} matched), depth {depth}, "
+                     "card vs CPU", dev, l_card, l_cpu, lg_state, opt, samples[0],
+                     ())
+    timed_model_steps(f"10c LightGlue step, {n_kpts} keypoints, depth {depth} "
+                      "(shipped weights)", dev, l_card, lg_state, opt, samples,
+                      card)
+    with contextlib.redirect_stdout(out):
+        lg_model, lg_params, hist = pretrain.train_lightglue(
+            sp_det, steps=3, init_params=lg_state)
+    check(all(np.isfinite(x["loss"]) for x in hist), "10c train_lightglue")
+    t0 = time.perf_counter()
+    ev = pretrain.evaluate_matching(sp_det, lg_model, lg_params, n_pairs=4)
+    print(f"[train] 10c evaluate_matching on 4 pairs of {lh}x{lw}: {ev}; "
+          f"{time.perf_counter() - t0:.2f} s (host clock)")
+    check(ev["gt_matches"] > 0 and 0 <= ev["precision"] <= 1,
+          "10c evaluate_matching")
+    t_phase = stage_done("10c (DISK, LightGlue, evaluate_matching)", t_phase)
+
+    # 10d. The reference-pair counts on a synthetic 752x480 pair in place
+    # of the reference pair, on the card (kernel 1 in _klt_verified) and
+    # on the CPU.
+    pair = translated_pair(h=H, w=W, shift=PAIR_SHIFT)
+    loader = pretrain._load_reference_pair
+    pretrain._load_reference_pair = lambda: pair
+    try:
+        counts = {}
+        for where in (dev, torch.device("cpu")):
+            det = SuperPointDetector.from_file(max_features=PRE_COUNT_CAP,
+                                               min_response=0.01,
+                                               device=where)
+            lg = LightGlue(device=where)
+            params = {k: v.to(where) for k, v in lg_state.items()}
+            if where == dev:
+                cuda_klt.track_pyramid_fast_cuda.launches = 0
+            t0 = time.perf_counter()
+            counts[where.type] = (pretrain.reference_pair_counts(det),
+                                  pretrain.reference_pair_lightglue_counts(
+                                      det, lg, params))
+            if where == dev:
+                torch.cuda.synchronize()
+                count_s = time.perf_counter() - t0
+                launches = cuda_klt.track_pyramid_fast_cuda.launches
+    finally:
+        pretrain._load_reference_pair = loader
+    print(f"[compare] 10d reference-pair counts on the synthetic {W}x{H} pair "
+          f"(card / CPU): nearby-match {counts[dev.type][0]} / "
+          f"{counts['cpu'][0]}; LightGlue {counts[dev.type][1]} / "
+          f"{counts['cpu'][1]}; {launches} launches of the FAST kernel in "
+          f"the two _klt_verified calls; {count_s:.2f} s (host clock)")
+    check(launches == 2, f"10d: {launches} FAST launches for two counts")
+    for got, want in zip(counts[dev.type], counts["cpu"]):
+        limit = max(1, int(KLT_STATUS_SHARE * PRE_COUNT_CAP))
+        check(got["raw"] == want["raw"]
+              and abs(got["verified"] - want["verified"]) <= limit,
+              f"10d: counts {got} on the card, {want} on the CPU")
+    t_phase = stage_done("10d (reference-pair counts)", t_phase)
+
+    # 10e. CoTracker's train step at the shipped run's configuration.
+    cb, ct, ch, cw, cn = COT_TRAIN
+    ccfg = shipped_cotracker_config()
+    cot_state = flax_order(load_cotracker_npz(weights_path("cotracker.npz"),
+                                              ccfg))
+    sched = warmup_cosine_schedule(1e-4, 500, 3000, init_value=0.0,
+                                   end_value=1e-6)
+    tx = ClipAdamW(sched, weight_decay=1e-4)
+    opt = tx.init(cot_state)
+
+    def cot_steps(cfg):
+        """The train step on the card and on the CPU, as ``(params,
+        opt_state, *batch) -> (params, opt_state, loss)`` with the average
+        started at the parameters."""
+        def wrap(step):
+            def run(params, opt_state, *batch):
+                params, _, opt_state, loss, _ = step(params, params,
+                                                     opt_state, *batch)
+                return params, opt_state, loss
+            return run
+        return [wrap(cotracker_pretrain.make_train_step(
+            CoTracker(cfg, device=d), tx)) for d in (dev, "cpu")]
+
+    cpool = cotracker_pretrain.make_pool(np.random.default_rng(11), 3, cb,
+                                         ct, ch, cw, cn, wide_motion=True,
+                                         device="cpu")
+    shape = (f"{cb} clips of {ct}x{ch}x{cw}, {cn} points, config "
+             f"{ccfg.feature_dim}/{ccfg.model_dim}/{ccfg.depth}")
+    # At the shipped configuration the gradients that cross the flow
+    # embedding's top frequencies (2^47) from one iteration to the next
+    # grow until their global norm overflows float32, so the clipped
+    # update is 0 (tests/test_torch_cotracker_shipped_step.py: in JAX
+    # too): the loss is held, and the moments are held to be 0 on both.
+    card_step, cpu_step = cot_steps(ccfg)
+    _, o_d, l_d = card_step(to_device(cot_state, dev), to_device(opt, dev),
+                            *to_device(tuple(cpool[0]), dev))
+    _, o_c, l_c = cpu_step(cot_state, opt, *cpool[0])
+    l_d, l_c = float(l_d), float(l_c)
+    zero = [all(float(v.abs().max()) == 0 for o in (o_s["mu"], o_s["nu"])
+                for v in o.values()) for o_s in (o_d, o_c)]
+    print(f"[compare] 10e CoTracker step from the shipped weights, {shape}/"
+          f"{ccfg.iterations}, card vs CPU: loss {l_d:.6f} / {l_c:.6f}; "
+          f"every Adam moment 0 (the global gradient norm overflows "
+          f"float32): {zero[0]} / {zero[1]}")
+    check(abs(l_d - l_c) <= TRAIN_LOSS_RTOL * abs(l_c),
+          "10e: losses differ")
+    check(zero == [True, True], "10e: the overflow differs on the card")
+    # The same widths and weights with the refinement cut to one
+    # iteration, where no gradient crosses the flow embedding: every leaf
+    # has a finite gradient that is not 0, and the moments are held.
+    one = dataclasses.replace(ccfg, iterations=1)
+    one_steps = cot_steps(one)
+    _, o_d = step_card_vs_cpu(
+        f"10e CoTracker step from the shipped weights, {shape}/1, card vs "
+        "CPU", dev, *one_steps, cot_state, opt, cpool[0], (0,))
+    timed_model_steps(f"10e CoTracker step at one iteration, {cb} x "
+                      f"{ct}x{ch}x{cw} (shipped weights)", dev, one_steps[0],
+                      cot_state, opt, cpool, card)
+    silent = [k for k, v in o_d["mu"].items()
+              if not (bool(torch.isfinite(v).all())
+                      and float(v.abs().max()) > 0)]
+    print(f"[train] 10e at one iteration: {len(o_d['mu']) - len(silent)} of "
+          f"{len(o_d['mu'])} leaves have a finite gradient that is not 0")
+    check(not silent, f"10e: no gradient reaches {silent}")
+    c_step = cotracker_pretrain.make_train_step(CoTracker(ccfg, device=dev),
+                                                tx)
+    cbox = [to_device(cot_state, dev), to_device(cot_state, dev),
+            to_device(opt, dev)]
+    dpool = [to_device(tuple(x), dev) for x in cpool]
+    losses = []
+
+    def crun():
+        out = c_step(*cbox, *dpool[len(losses) % len(dpool)])
+        cbox[:] = out[:3]
+        losses.append(out[3])
+
+    timed_steps(f"10e CoTracker step with the parameter average, {cb} x "
+                f"{ct}x{ch}x{cw} (shipped weights)", crun, card, TRAIN_STEPS)
+    profile_window("10e CoTracker step", crun, calls=5)
+    check(all(np.isfinite([float(x) for x in losses])), "10e losses")
+    t_phase = stage_done("10e (CoTracker step)", t_phase)
+
+    # 10f. Both mains, a handful of steps per stage, full widths, into a
+    # temporary directory.
+    with tempfile.TemporaryDirectory() as tmp:
+        shipped_dirs = [m.WEIGHTS_DIR for m in (pretrain, cotracker_pretrain)]
+        for module in (pretrain, cotracker_pretrain):
+            module.WEIGHTS_DIR = tmp
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                pretrain.main(sp_steps=2, disk_steps=2, lg_steps=2,
+                              adapt_rounds=1, adapt_steps=2, adapt_pool=4,
+                              lg_disk_steps=2, device=dev)
+                agg = cotracker_pretrain.main(
+                    steps=3, batch=cb, pool_size=3, eval_videos=2,
+                    feature_dim=ccfg.feature_dim, model_dim=ccfg.model_dim,
+                    depth=ccfg.depth, iterations=ccfg.iterations,
+                    device=dev)
+        finally:
+            for module, shipped in zip((pretrain, cotracker_pretrain),
+                                       shipped_dirs):
+                module.WEIGHTS_DIR = shipped
+        text = out.getvalue()
+        print("\n".join(line for line in text.splitlines()
+                        if line.startswith("[")))
+        files = sorted(os.listdir(tmp))
+        check(files == ["cotracker.npz", "disk.npz", "lightglue_disk.npz",
+                        "lightglue_superpoint.npz", "metrics.json",
+                        "superpoint.npz"], f"10f wrote {files}")
+        with open(os.path.join(tmp, "metrics.json")) as fh:
+            metrics = json.load(fh)
+        check(list(metrics) == PRETRAIN_KEYS + ["cotracker"],
+              f"10f metrics.json keys {list(metrics)}")
+        load_superpoint_npz(os.path.join(tmp, "superpoint.npz"))
+        load_disk_npz(os.path.join(tmp, "disk.npz"))
+        load_lightglue_npz(os.path.join(tmp, "lightglue_superpoint.npz"))
+        load_lightglue_npz(os.path.join(tmp, "lightglue_disk.npz"),
+                           LightGlueConfig(descriptor_dim=128))
+        load_cotracker_npz(os.path.join(tmp, "cotracker.npz"), ccfg)
+        check(np.isfinite(agg["epe"]), "10f: CoTracker's held-out EPE")
+    check(weights_digest() == weights_before,
+          "a file under weights/ changed during the run")
+    print("[train] 10f both mains wrote JAX's files and metrics.json keys "
+          "into a temporary directory; weights/ unchanged: every file's "
+          "sha256 as before the run")
+    stage_done("10f (pretrain.main, cotracker_pretrain.main)", t_phase)
+    return launches
 
 
 def main() -> int:
@@ -2826,6 +3322,8 @@ def main() -> int:
     model_paths(dev, card)
     sharded = parallel_paths(dev, card, rp, cp, uv, opts)
     train_paths(dev, card, weights_before)
+    kernels[0]["pretrain_launches"] = pretrain_paths(dev, card,
+                                                     weights_before)
     for k in kernels:
         if k["name"] in sharded:
             k["sharded_launches"] = sharded[k["name"]]

@@ -28,12 +28,16 @@ arrays, one converter per model (``raft_state_from_jax``,
 
 Training state crosses too, so that both sides can start a step from the
 same state: a RAFT trainer's ``TrainState`` (``train_state_from_jax``),
-and a SuperPoint, DISK or LightGlue trainer's ``(params, opt_state)``
-(``model_train_state_from_jax``), optax's Adam moments in the layout of
-the parameters they belong to:
+a SuperPoint, DISK or LightGlue trainer's ``(params, opt_state)``
+(``model_train_state_from_jax``) and the CoTracker trainer's ``(params,
+ema, opt_state)`` (``cotracker_train_state_from_jax``), optax's Adam
+moments in the layout of the parameters they belong to:
 
   state = train_state_from_jax(jax_state, device="cuda")
   params, opt_state = model_train_state_from_jax(variables, jax_opt_state)
+
+The way back, a port model's ``state_dict`` as the Flax variables tree the
+JAX package's weight files hold, is ``flax_variables_from_state``.
 
 Objects are matched by dataclass name and field names; arrays cross as
 numpy.
@@ -278,6 +282,58 @@ def flax_state_from_jax(variables, model: str = "Flax") -> dict:
     return state
 
 
+def _flax_layout(arr, parts, leaf, num_heads):
+    """``(Flax leaf name, array)`` of a ``state_dict`` entry: the inverse
+    of :func:`_torch_layout`. A query / key / value / out projection of a
+    ``MultiHeadDotProductAttention_*`` module takes its ``[D, H, Dh]`` /
+    ``[H, Dh, D]`` kernel and ``[H, Dh]`` bias from ``num_heads``."""
+    attention = (len(parts) >= 2 and parts[-1] in ("query", "key", "value",
+                                                  "out")
+                 and parts[-2].startswith("MultiHeadDotProductAttention"))
+    if attention and num_heads is None:
+        raise ValueError(f"{'.'.join(parts)}: an attention leaf needs "
+                         "num_heads")
+    if leaf in ("running_mean", "running_var"):
+        return leaf[len("running_"):], arr
+    if leaf == "bias":
+        if attention and parts[-1] != "out":
+            return "bias", arr.reshape(num_heads, -1)
+        return "bias", arr
+    if arr.ndim == 1:
+        return "scale", arr
+    if arr.ndim == 4:
+        return "kernel", arr.transpose(2, 3, 1, 0)
+    if attention and parts[-1] == "out":
+        return "kernel", arr.T.reshape(num_heads, -1, arr.shape[0])
+    if attention:
+        return "kernel", arr.T.reshape(arr.shape[1], num_heads, -1)
+    return "kernel", arr.T
+
+
+def flax_variables_from_state(state: dict, num_heads: int | None = None
+                              ) -> dict:
+    """The Flax variables tree of one of the port's models' ``state_dict``
+    (or a dict of some of its entries): the inverse of
+    :func:`flax_state_from_jax`, as the JAX package's weight files hold it
+    (``{"params": ..., "batch_stats": ...}`` of nested dicts of numpy
+    arrays; a collection without entries is left out; attention kernels
+    need the model's ``num_heads``). ``num_batches_tracked`` is dropped."""
+    tree = {}
+    for key, value in state.items():
+        *parts, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        name, arr = _flax_layout(value.detach().cpu().numpy(), parts, leaf,
+                                 num_heads)
+        collection = ("batch_stats" if leaf.startswith("running_")
+                      else "params")
+        node = tree.setdefault(collection, {})
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr)
+    return tree
+
+
 def raft_state_from_jax(variables) -> dict:
     """A Flax ``Raft`` variables tree as the ``state_dict`` of the port's
     ``Raft`` (:func:`flax_state_from_jax`)."""
@@ -377,3 +433,20 @@ def model_train_state_from_jax(variables, opt_state, device="cuda"):
     dev = torch.device(device)
     return (_tensors(variables, "Flax", dev),
             _opt_state_from_jax(opt_state, lambda t: t, "Flax", dev))
+
+
+def cotracker_train_state_from_jax(params, ema, opt_state, device="cuda"):
+    """``(params, ema, opt_state)`` of the port's CoTracker trainer
+    (``train/cotracker_pretrain.py::make_train_step``) for the JAX
+    trainer's: its ``params`` and parameter average (Flax ``params``
+    collections, without the ``{"params": ...}`` wrapper) as
+    ``state_dict`` tensors in Flax's order, and optax's Adam state in the
+    same layout; tensors on ``device``."""
+    dev = torch.device(device)
+
+    def wrap(t):
+        return {"params": t}
+
+    return (_tensors(wrap(params), "CoTracker", dev),
+            _tensors(wrap(ema), "CoTracker", dev),
+            _opt_state_from_jax(opt_state, wrap, "CoTracker", dev))

@@ -1,5 +1,5 @@
-"""CoTracker-style joint point tracking over video, inference only — the
-counterpart of ``feature_tracker_tpu/models/cotracker.py``.
+"""CoTracker-style joint point tracking over video, for inference and
+training — the counterpart of ``feature_tracker_tpu/models/cotracker.py``.
 
 N query points are tracked through T frames jointly, with a factorized
 transformer attending across time (per point) and across points (per
@@ -255,7 +255,10 @@ class CoTracker(nn.Module):
     ``[T, N, 2]`` pixel coords, visibility logits ``[T, N]``), and with
     ``return_all_iterations`` also every iteration's positions
     ``[K, T, N, 2]``. Inputs may be numpy arrays or tensors; the model runs
-    on ``device`` (default ``"cuda"``) in ``eval()`` mode."""
+    on ``device`` (default ``"cuda"``) in ``eval()`` mode, under
+    ``torch.inference_mode`` unless ``grad=True`` (the trainer's form,
+    ``train/cotracker_pretrain.py``: one clip per call, the batch of the
+    JAX trainer's ``vmap`` a loop over calls)."""
 
     def __init__(self, cfg: CoTrackerConfig = CoTrackerConfig(),
                  in_channels: int = 1, device="cuda"):
@@ -274,8 +277,9 @@ class CoTracker(nn.Module):
         self.to(self.device)
         self.eval()
 
-    def forward(self, video, queries, return_all_iterations: bool = False):
-        with torch.inference_mode(), full_float32():
+    def forward(self, video, queries, return_all_iterations: bool = False,
+                *, grad: bool = False):
+        with torch.inference_mode(not grad), full_float32():
             ctx = self._prepare(video, queries)
             t, n = ctx["t"], ctx["n"]
             pos = ctx["q_feat_pos"][None, :, :].expand(t, n, 2)

@@ -1,9 +1,10 @@
-"""SuperPoint detector + descriptor, for inference and its trainer — the counterpart
+"""SuperPoint detector + descriptor, for inference and training — the counterpart
 of ``feature_tracker_tpu/models/superpoint.py``.
 
  - shared VGG-style encoder: [64,64]-pool-[64,64]-pool-[128,128]-pool-
    [128,128] -> H/8 x W/8, each convolution followed by batch
-   normalisation (running statistics) and ReLU
+   normalisation (running statistics, or the batch's with ``train=True``)
+   and ReLU
  - detector head: conv3x3(256) -> conv1x1(65); softmax over the 65 channels
    (64 cell pixels + dustbin), dustbin dropped, depth-to-space to a full
    resolution heatmap
@@ -31,7 +32,11 @@ from torch import nn
 
 from feature_tracker_tpu_torch.core.config import HarrisOptions
 from feature_tracker_tpu_torch.core.device import resolve_device
-from feature_tracker_tpu_torch.models.layers import divide, seeded_init
+from feature_tracker_tpu_torch.models.layers import (
+    divide,
+    flax_order,
+    seeded_init,
+)
 from feature_tracker_tpu_torch.models.raft import BatchNorm, Conv, full_float32
 from feature_tracker_tpu_torch.ops import detect as _detect
 
@@ -49,9 +54,10 @@ class SuperPoint(nn.Module):
     """``forward(image)``: image ``[B, H, W, 1]`` in 0..255. Returns
     (heatmap ``[B, H, W]``, dense descriptors ``[B, H/8, W/8, D]``,
     unnormalized). Runs on ``device`` (default ``"cuda"``; raises without a
-    GPU unless ``device="cpu"``) in ``eval()`` mode, under
+    GPU unless ``device="cpu"``) on the running statistics, under
     ``torch.inference_mode`` unless ``grad=True`` (the trainer's form: the
-    running statistics then may require grad, see ``BatchNorm``)."""
+    running statistics then may require grad, see ``BatchNorm``);
+    ``train=True`` is Flax's training mode (see ``forward``)."""
 
     def __init__(self, cfg: SuperPointConfig = SuperPointConfig(),
                  device="cuda"):
@@ -73,34 +79,44 @@ class SuperPoint(nn.Module):
         self.to(self.device).to(memory_format=torch.channels_last)
         self.eval()
 
-    def _block(self, x, conv: int, norm: int):
+    def _block(self, x, conv: int, norm: int, train: bool = False):
         x = getattr(self, f"Conv_{conv}")(x)
-        return F.relu(getattr(self, f"BatchNorm_{norm}")(x))
+        return F.relu(getattr(self, f"BatchNorm_{norm}")(x, train))
 
     def forward(self, image, train: bool = False, *, grad: bool = False):
-        if train:
-            raise NotImplementedError(
-                "SuperPoint's training mode (batch statistics) is not "
-                "ported; the port runs on the running statistics (its "
-                "trainer, as the JAX one, optimises them with train=False)")
-        with torch.inference_mode(not grad), full_float32():
-            x = torch.as_tensor(image, dtype=torch.float32,
-                                device=self.device)
-            x = divide(x, 255.0).to(self.cfg.dtype)
-            for i in range(len(_ENCODER)):
-                x = self._block(x, i, i)
-                if i in (1, 3, 5):
-                    x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(
-                        0, 2, 3, 1)
+        """With ``train=True`` (Flax's ``apply(..., train=True,
+        mutable=["batch_stats"])``) every batch norm normalises by the
+        batch's statistics and updates its running ones in place to ``0.9 *
+        old + 0.1 * batch`` (``models/raft.py::BatchNorm``); the call runs
+        with autograd and returns ``((heat, desc), stats)``, ``stats`` the
+        new running statistics in Flax's order, as ``Raft`` returns its
+        own."""
+        if not train:
+            with torch.inference_mode(not grad), full_float32():
+                return self._forward(image, False)
+        with full_float32():
+            out = self._forward(image, True)
+        stats = {k: v for k, v in self.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))}
+        return out, flax_order(stats)
 
-            det = self.Conv_9(self._block(x, 8, 8))
-            prob = torch.softmax(det, dim=-1)[..., :64]   # drop dustbin
-            b, hc, wc, _ = prob.shape
-            heat = prob.reshape(b, hc, wc, 8, 8).permute(0, 1, 3, 2, 4)
-            heat = heat.reshape(b, hc * 8, wc * 8)
+    def _forward(self, image, train: bool):
+        x = torch.as_tensor(image, dtype=torch.float32, device=self.device)
+        x = divide(x, 255.0).to(self.cfg.dtype)
+        for i in range(len(_ENCODER)):
+            x = self._block(x, i, i, train)
+            if i in (1, 3, 5):
+                x = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(
+                    0, 2, 3, 1)
 
-            desc = self.Conv_11(self._block(x, 10, 9))
-            return heat, desc
+        det = self.Conv_9(self._block(x, 8, 8, train))
+        prob = torch.softmax(det, dim=-1)[..., :64]   # drop dustbin
+        b, hc, wc, _ = prob.shape
+        heat = prob.reshape(b, hc, wc, 8, 8).permute(0, 1, 3, 2, 4)
+        heat = heat.reshape(b, hc * 8, wc * 8)
+
+        desc = self.Conv_11(self._block(x, 10, 9, train))
+        return heat, desc
 
 
 def sample_descriptors(desc_map, uv, stride: int = 8):

@@ -1,6 +1,8 @@
 """Training and evaluation of the port's models: RAFT's trainers
 (``raft_train``, ``raft_pretrain``), the checkpoint, the SuperPoint, DISK
-and LightGlue trainers, and the flow metrics (``raft_eval``)."""
+and LightGlue trainers, the multi-stage pretraining driver (``pretrain``),
+CoTracker's pretraining (``cotracker_pretrain``), and the flow metrics
+(``raft_eval``)."""
 
 from feature_tracker_tpu_torch.train.raft_train import (
     RaftTrainConfig,

@@ -51,21 +51,26 @@ def _unflat(flat: torch.Tensor, like: dict) -> dict:
 
 
 def warmup_cosine_schedule(peak: float, warmup_steps: int,
-                           total_steps: int):
-    """optax's ``join_schedules([linear_schedule(0, peak, warmup_steps),
-    cosine_decay_schedule(peak, total_steps - warmup_steps)],
-    [warmup_steps])``: the learning rate (float32, on ``count``'s device)
-    of an int32 0-dim ``count``, in optax's float32 arithmetic."""
+                           total_steps: int, init_value: float = 0.0,
+                           end_value: float = 0.0):
+    """optax's ``warmup_cosine_decay_schedule(init_value, peak,
+    warmup_steps, total_steps, end_value)``: ``join_schedules(
+    [linear_schedule(init_value, peak, warmup_steps),
+    cosine_decay_schedule(peak, total_steps - warmup_steps, alpha=end_value
+    / peak)], [warmup_steps])``: the learning rate (float32, on ``count``'s
+    device) of an int32 0-dim ``count``, in optax's float32 arithmetic."""
     decay_steps = total_steps - warmup_steps
+    alpha = 0.0 if peak == 0.0 else end_value / peak
 
     def schedule(count: torch.Tensor) -> torch.Tensor:
         warm = torch.clamp(count, 0, warmup_steps).float()
         frac = 1 - divide(warm, float(warmup_steps))
-        linear = (0.0 - peak) * frac + peak
+        linear = (init_value - peak) * frac + peak
         since = torch.clamp(count - warmup_steps, max=decay_steps).float()
         cosine = 0.5 * (1 + torch.cos(divide(math.pi * since,
                                              float(decay_steps))))
-        return torch.where(count < warmup_steps, linear, peak * cosine)
+        decayed = (1 - alpha) * cosine + alpha
+        return torch.where(count < warmup_steps, linear, peak * decayed)
 
     return schedule
 

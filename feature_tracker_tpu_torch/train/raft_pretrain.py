@@ -23,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from feature_tracker_tpu_torch.convert import flax_variables_from_state
 from feature_tracker_tpu_torch.core.device import resolve_device
 from feature_tracker_tpu_torch.models.raft import Raft, RaftConfig
 from feature_tracker_tpu_torch.train.pretrain import warped_texture_pair
@@ -98,25 +99,8 @@ def jax_variables(params: dict, batch_stats: dict) -> dict:
     """A RAFT state (``state_dict`` keys) as the Flax variables tree the
     JAX package's weight files hold: ``{"params": ..., "batch_stats":
     ...}`` of numpy arrays, convolution kernels HWIO, ``scale`` / ``mean``
-    / ``var`` leaves."""
-    tree = {"params": {}, "batch_stats": {}}
-    for collection, state in (("params", params),
-                              ("batch_stats", batch_stats)):
-        for key, value in state.items():
-            *path, leaf = key.split(".")
-            arr = value.detach().cpu().numpy()
-            if leaf == "weight":
-                leaf = "kernel" if arr.ndim == 4 else "scale"
-                if arr.ndim == 4:
-                    arr = arr.transpose(2, 3, 1, 0)
-            else:
-                leaf = {"running_mean": "mean",
-                        "running_var": "var"}.get(leaf, leaf)
-            node = tree[collection]
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = np.ascontiguousarray(arr)
-    return tree
+    / ``var`` leaves (``convert.py::flax_variables_from_state``)."""
+    return flax_variables_from_state({**params, **batch_stats})
 
 
 def main(steps: int = 600, h: int = 128, w: int = 128, batch: int = 4,

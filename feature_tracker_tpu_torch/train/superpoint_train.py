@@ -89,6 +89,25 @@ def corner_label_map(corners, h: int, w: int):
     return labels
 
 
+def detector_nll(heat, labels):
+    """The 65-way cell loss of a heatmap ``[B, H, W]`` (probabilities,
+    dustbin dropped) against cell labels ``[B, H/8, W/8]`` (long): the
+    per-cell distributions rebuilt as the 64 cell pixels plus the implied
+    dustbin mass ``1 - sum``, each clipped to [1e-8, 1] as ``jnp.clip``
+    does; corner cells weighted 10, dustbin cells 1."""
+    b, hh, ww = heat.shape
+    hc, wc = hh // 8, ww // 8
+    cells = heat.reshape(b, hc, 8, wc, 8).permute(0, 1, 3, 2, 4)
+    cells = cells.reshape(b, hc, wc, 64)
+    dust = clip_like_jax(1.0 - torch.sum(cells, -1, keepdim=True), 1e-8, 1.0)
+    logp = torch.log(torch.cat([clip_like_jax(cells, 1e-8, 1.0), dust],
+                               dim=-1))
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    # Balance: corner cells are rare; weight them up.
+    wgt = torch.where(labels < 64, 10.0, 1.0)
+    return torch.sum(nll * wgt) / torch.sum(wgt)
+
+
 def make_train_step(model: SuperPoint, cfg: SuperPointTrainConfig):
     """``(step, tx)``: ``step(params, opt_state, images, labels) -> (params,
     opt_state, loss)`` with images ``[B, H, W, 1]`` and labels ``[B, H/8,
@@ -107,21 +126,7 @@ def make_train_step(model: SuperPoint, cfg: SuperPointTrainConfig):
             # train=False: batch norm uses its stored statistics, which are
             # part of the optimised tensors here.
             heat, _ = functional_call(model, p, (images,), {"grad": True})
-            # heat: [B, H, W] probabilities (dustbin dropped). Rebuild
-            # per-cell distributions: cells [B, hc, wc, 64] plus implied
-            # dustbin mass = 1 - sum(cells).
-            b, hh, ww = heat.shape
-            hc, wc = hh // 8, ww // 8
-            cells = heat.reshape(b, hc, 8, wc, 8).permute(0, 1, 3, 2, 4)
-            cells = cells.reshape(b, hc, wc, 64)
-            dust = clip_like_jax(1.0 - torch.sum(cells, -1, keepdim=True),
-                                 1e-8, 1.0)
-            logp = torch.log(torch.cat([clip_like_jax(cells, 1e-8, 1.0),
-                                        dust], dim=-1))
-            nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
-            # Balance: corner cells are rare; weight them up.
-            wgt = torch.where(labels < 64, 10.0, 1.0)
-            return torch.sum(nll * wgt) / torch.sum(wgt), None
+            return detector_nll(heat, labels), None
 
         with full_float32():
             loss, _, grads = value_and_grad(loss_fn, params)

@@ -1235,3 +1235,117 @@ def test_model_trainer_step_card_matches_cpu(card, name):
                                     opt["nu"].items()}}, *batch)
     p_c, o_c, _ = step_cpu(params, opt, *batch)
     moments_agree(name, (p_d, o_d), (p_c, o_c))
+
+
+# ------------------------------------------------------------ pretraining
+# SuperPoint's training mode and the pretraining steps on the card against
+# the CPU (chip_smoke.py's phase 10 rules: ``step_card_vs_cpu`` holds the
+# loss within 1e-4 relative and the moments by ``moments_agree``, within
+# twice the CPU's one-ulp spread where that is larger).
+def test_superpoint_training_mode_card_matches_cpu(card):
+    from chip_smoke import (
+        SP_TRAIN_DESC_TOL,
+        SP_TRAIN_HEAT_TOL,
+        TRAIN_STATS_ATOL,
+        TRAIN_STATS_RTOL,
+    )
+    from feature_tracker_tpu_torch.models.layers import flax_init_
+    from feature_tracker_tpu_torch.models.superpoint import (
+        SuperPoint,
+        SuperPointConfig,
+    )
+
+    cfg = SuperPointConfig(descriptor_dim=32)
+    state = flax_init_(SuperPoint(cfg, device="cpu"), 5).state_dict()
+    rng = np.random.default_rng(5)
+    images = rng.uniform(0, 255, (3, 48, 64, 1)).astype(np.float32)
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        model = SuperPoint(cfg, device=dev)
+        model.load_state_dict(state)
+        outs.append(model(images, train=True))
+    ((heat_d, desc_d), stats_d), ((heat_c, desc_c), stats_c) = outs
+    assert heat_d.requires_grad and list(stats_d) == list(stats_c)
+    heat_d, desc_d, heat_c, desc_c = (t.detach() for t in (heat_d, desc_d,
+                                                           heat_c, desc_c))
+    assert float((heat_d.cpu() - heat_c).abs().max()) <= SP_TRAIN_HEAT_TOL
+    assert (float((desc_d.cpu() - desc_c).abs().max())
+            <= SP_TRAIN_DESC_TOL * float(desc_c.abs().max()))
+    for k, v in stats_c.items():
+        assert bool(((stats_d[k].cpu() - v).abs()
+                     <= TRAIN_STATS_RTOL * v.abs() + TRAIN_STATS_ATOL).all())
+
+
+@pytest.mark.parametrize("kind", ["cells", "points", "distill"])
+def test_superpoint_pretrain_step_card_matches_cpu(card, kind):
+    from chip_smoke import captured_pools, pool_batches, step_card_vs_cpu
+    from feature_tracker_tpu_torch.models.layers import flax_order
+    from feature_tracker_tpu_torch.models.superpoint import SuperPoint
+    from feature_tracker_tpu_torch.train import pretrain
+    from feature_tracker_tpu_torch.train.optim import ClipAdamW
+    from feature_tracker_tpu_torch.utils.weights import (
+        load_superpoint_npz,
+        weights_path,
+    )
+
+    state = flax_order(load_superpoint_npz(weights_path("superpoint.npz")))
+    models = [SuperPoint(device=d) for d in (card, "cpu")]
+    kw = dict(h=32, w=32, batch=2, pool_size=4)
+    tx = ClipAdamW(1e-4, weight_decay=1e-5)
+    if kind == "distill":
+        pool = captured_pools(pretrain.distill_superpoint_from_disk,
+                              models[0], state, steps=0, n_warps=3, **kw)[0]
+        steps = [pretrain._make_sp_distill_step(m, tx) for m in models]
+    else:
+        pool = captured_pools(pretrain.adapt_superpoint, models[0], state,
+                              rounds=1, steps=0, n_warps=3,
+                              point_desc=kind == "points", **kw)[0]
+        steps = [pretrain._make_sp_step(m, tx, 4, 4,
+                                        point_desc=kind == "points")
+                 for m in models]
+    step_card_vs_cpu(f"SuperPoint {kind} step", card, *steps, state,
+                     tx.init(state), pool_batches(pool, 2)[0], (0, 1))
+
+
+def test_cotracker_train_step_card_matches_cpu(card):
+    """From Flax's initializers with the heads (zero there) drawn N(0, 0.05),
+    so that the gradients reach every leaf; at this width the flow
+    embedding's frequencies stay low enough for the global norm to be
+    finite, and every leaf's moments are held."""
+    from chip_smoke import step_card_vs_cpu
+    from feature_tracker_tpu_torch.models.cotracker import (
+        CoTracker,
+        CoTrackerConfig,
+    )
+    from feature_tracker_tpu_torch.train import cotracker_pretrain
+    from feature_tracker_tpu_torch.train.optim import (
+        ClipAdamW,
+        warmup_cosine_schedule,
+    )
+
+    cfg = CoTrackerConfig(feature_dim=32, model_dim=32, depth=1,
+                          iterations=2)
+    tx = ClipAdamW(warmup_cosine_schedule(1e-3, 1, 10, end_value=1e-6),
+                   weight_decay=1e-4)
+    params = cotracker_pretrain.init_params(CoTracker(cfg, device="cpu"), 3)
+    rng = np.random.default_rng(9)
+    params = {k: (torch.from_numpy(rng.normal(0, 0.05, tuple(v.shape))
+                                   .astype(np.float32))
+                  if k.startswith(("update.delta_head.", "update.vis_head."))
+                  else v) for k, v in params.items()}
+    steps = []
+    for dev in (card, "cpu"):
+        step = cotracker_pretrain.make_train_step(CoTracker(cfg, device=dev),
+                                                  tx)
+
+        def run(p, opt_state, *batch, _step=step):
+            p, _, opt_state, loss, _ = _step(p, p, opt_state, *batch)
+            return p, opt_state, loss
+
+        steps.append(run)
+    pool = cotracker_pretrain.make_pool(np.random.default_rng(3), 1, 2, 4,
+                                        32, 32, 6, wide_motion=True,
+                                        device="cpu")
+    _, opt = step_card_vs_cpu("CoTracker step", card, *steps, params,
+                              tx.init(params), pool[0], (0,))
+    assert all(float(v.abs().max()) > 0 for v in opt["mu"].values())

@@ -197,16 +197,7 @@ def test_port_imports_no_jax():
 # counterpart.
 ALLOWED_MISSING = {
     "train/__init__.py": set(),
-    # The multi-stage pretraining driver (everything after the synthetic
-    # pairs) is queued: ROADMAP.md section 1, item 8b.
-    "train/pretrain.py": {
-        "harris_adaptation_points", "disk_adaptation_points",
-        "train_superpoint", "adapt_superpoint",
-        "distill_superpoint_from_disk", "train_disk", "train_lightglue",
-        "make_lightglue_sample", "evaluate_matching",
-        "reference_pair_counts", "BRIEF_ANCHOR_RAW",
-        "reference_pair_match_count", "reference_pair_lightglue_counts",
-        "reference_pair_lightglue_count", "main"},
+    "train/pretrain.py": set(),
 }
 PORT = REPO / "feature_tracker_tpu_torch"
 JAX_PACKAGE = REPO / "feature_tracker_tpu"
@@ -264,6 +255,7 @@ def test_the_name_guard_covers_the_ported_modules():
             "parallel/scaling.py", "train/checkpoint.py",
             "train/raft_train.py", "train/raft_pretrain.py",
             "train/superpoint_train.py", "train/disk_train.py",
-            "train/lightglue_train.py", "train/pretrain.py"} \
+            "train/lightglue_train.py", "train/pretrain.py",
+            "train/cotracker_pretrain.py"} \
         <= set(COUNTERPARTS)
     assert set(ALLOWED_MISSING) <= set(COUNTERPARTS)

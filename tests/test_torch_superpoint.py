@@ -73,6 +73,37 @@ def test_superpoint_matches_jax_on_seeded_weights(seeded, shape):
     _close_to_scale(desc.numpy(), want_desc, 1e-4)
 
 
+def test_superpoint_training_mode_matches_jax(seeded):
+    """``train=True`` against ``apply(..., train=True,
+    mutable=["batch_stats"])``: outputs on the batch's statistics, and the
+    new running statistics (``0.9 * old + 0.1 * batch``, the batch
+    variance biased) within 1e-5 of their scale."""
+    model, variables, _ = seeded
+    rng = np.random.default_rng(4)
+    img = np.stack([Texture(s).render(48, 64) + rng.normal(0, 2, (48, 64))
+                    for s in (5, 6, 7)]).astype(np.float32)[..., None]
+    (want_heat, want_desc), new = model.apply(
+        variables, jnp.asarray(img), train=True, mutable=["batch_stats"])
+    port = sp.SuperPoint(device="cpu")
+    port.load_state_dict(superpoint_state_from_jax(variables))
+    (heat, desc), stats = port(img, train=True)
+    assert heat.requires_grad and desc.requires_grad
+    np.testing.assert_allclose(heat.detach().numpy(), np.asarray(want_heat),
+                               rtol=0, atol=1e-5)
+    _close_to_scale(desc.detach().numpy(), want_desc, 1e-4)
+    want_stats = {k: v for k, v in superpoint_state_from_jax(new).items()
+                  if not k.endswith("num_batches_tracked")}
+    assert sorted(stats) == sorted(want_stats) and len(stats) == 20
+    for k, w in want_stats.items():
+        _close_to_scale(stats[k].numpy(), w.numpy(), 1e-5)
+        assert torch.equal(port.state_dict()[k], stats[k])
+    # Inference afterwards reads the updated running statistics.
+    heat2, _ = port(img)
+    want2, _ = model.apply({**variables, **new}, jnp.asarray(img))
+    np.testing.assert_allclose(heat2.numpy(), np.asarray(want2), rtol=0,
+                               atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def shipped():
     """Both detectors on the shipped weights, and the JAX side's outputs
@@ -157,8 +188,6 @@ def test_detector_entry_points(tmp_path):
                for k in a.variables)
     assert not torch.equal(a.variables["Conv_0.weight"],
                            b.variables["Conv_0.weight"])
-    with pytest.raises(NotImplementedError, match="training"):
-        a.model(np.zeros((1, 16, 16, 1), np.float32), train=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             sp.SuperPointDetector.from_file()
