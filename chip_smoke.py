@@ -126,7 +126,17 @@ Phases (any failed check raises, so the exit code is non-zero):
      step against the CPU, then 20 steps timed and profiled; (f)
      ``raft_pretrain.main(steps=20, h=128, w=128, batch=4, iters=8)``
      writing into a temporary directory, its held-out line printed, and
-     every file under ``weights/`` byte for byte as before the run.
+     every file under ``weights/`` byte for byte as before the run; (g)
+     height sharding, ranks sharing the card through gloo (agreement,
+     memory and traffic, not scaling): (i) the supervised and the
+     unsupervised step on a ("data", "model") = (1, 2) mesh against the
+     one-rank step, and the (1, 2) step timed; (ii) the (1, 2) step at the
+     FlyingChairs crop, each rank's peak memory beside the one-rank peak;
+     (iii) a (2, 2) mesh on four ranks; for each, every rank's band rows
+     (its input, first encoder activation and fmap0) and its collectives
+     by operation against ``expected_train_comm``, and the ranks' states
+     equal bit for bit; (iv) the ``low_memory`` step on the card against
+     the CPU, with no launch of the lookup kernel.
  10. Pretraining (``train/pretrain.py``, ``train/cotracker_pretrain.py``),
      each sub-phase timed, TF32 off, every step held to the same step on
      the CPU from the same state by phase 9's rules, within twice the
@@ -169,6 +179,7 @@ file).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -270,6 +281,8 @@ TRAIN_GRAD_TOL = 1e-3           # of a leaf's largest |g|, card vs CPU
 TRAIN_GRAD_FLOOR = 1e-6         # of the largest |g| over all leaves
 TRAIN_ZERO_GRAD = 1e-5          # of the largest, where the gradient is 0
 TRAIN_PARAM_TOL = 1e-6          # where |g| counts (moments_agree)
+BAND_MESHES = ({"data": 1, "model": 2}, {"data": 2, "model": 2})
+BAND_STEPS = 6                  # timed (1, 2) steps on each rank
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_STATS_RTOL, TRAIN_STATS_ATOL = 1e-4, 1e-5
 # Phase 10: the pretraining stages. train_superpoint's batch and images;
@@ -2169,22 +2182,142 @@ def train_state_agree(label, got, want, got_m, want_m, spread=None):
                          (want.params, want.opt_state), zero, spread)
 
 
-def expected_train_all_reduces(cfg, n_params):
-    """(calls, bytes) of one data-parallel RAFT step, counted from the
-    model: each training-mode batch norm sums [2, C] float32 forward and
-    its gradient backward (the feature encoder runs twice, the context
-    encoder once), the loss its per-iteration sums both ways, the EPE one
-    sum, the gradient one flat all-reduce."""
+def _halo_convs(cfg, iterations, unsup):
+    """(k, channels, scale, has a backward) of every halo exchange of one
+    RAFT train step on row bands, in the model's order: each convolution
+    taller than one row fetches kh // 2 rows of its input (the z and r
+    gates of the (5, 1) GRU convolutions share one, and so do the flow and
+    mask heads, which both read ``net``), convex upsampling one row of the
+    flow, and the photometric loss's smoothness one row of each
+    prediction. The stem's input (the images) and the first iteration's
+    flow (zero) take no gradient, so those exchanges have no backward."""
+    def encoder(out):
+        step = out // 4
+        widths = (step, step, step * 2, step * 2, step * 3, step * 3, out)
+        convs, scale = [(3, cfg.in_channels, 1, False)], 1
+        for i in range(6):
+            convs.append((1, widths[i], scale, True))
+            scale *= 1 + i % 2
+            convs.append((1, widths[i + 1], scale, True))
+        return convs + [(1, out, 8, True)]
+
+    convs = (2 * encoder(cfg.feature_channels)
+             + encoder(cfg.context_channels + cfg.hidden_channels))
+    gru = cfg.context_channels + cfg.motion_out_channels + cfg.hidden_channels
+    for it in range(iterations):
+        convs += [(1, cfg.correlation_hidden_channels, 8, True),
+                  (3, 2, 8, it > 0),
+                  (1, cfg.flow_hidden_channels, 8, True),
+                  (1, cfg.correlation_out_channels + cfg.flow_out_channels,
+                   8, True),
+                  (2, gru, 8, True), (2, gru, 8, True),
+                  (1, cfg.hidden_channels, 8, True),
+                  (1, cfg.flow_out_channels, 8, True)]
+        if not cfg.upsample_last_only:
+            convs.append((1, 2, 8, True))
+    if cfg.upsample_last_only:
+        convs.append((1, 2, 8, True))
+    if unsup:
+        convs += [(1, 2, 1, True)] * iterations
+    return convs
+
+
+def expected_train_comm(cfg, n_params, shape, mesh_shape, unsup=False):
+    """{operation: (calls, bytes)} of one RAFT train step (the photometric
+    one with ``unsup``) on a mesh ``mesh_shape`` (``{"data": d}`` or
+    ``{"data": d, "model": m}``) for a batch of ``shape`` (B, H, W), as
+    ``comm_stats`` counts it, from the configuration alone.
+
+    All-reduces: each training-mode batch norm sums [2, C] float32 forward
+    and its gradient backward (the feature encoder runs twice, the context
+    encoder once), the loss its per-iteration sums both ways ([T] for the
+    sequence loss, [T, 4] for the photometric one), the metric one sum, the
+    gradient one flat all-reduce; each is one call per mesh axis. With a
+    ``model`` axis of m > 1, every halo exchange (``_halo_convs``)
+    all-gathers each band's first and last k rows of the data slice's B/d
+    images, m * 2k rows, forward and, for its backward, all-reduces a
+    gradient of that size; the second feature map is all-gathered once,
+    each band padded to the largest (ceil(H / 8 / m) rows), and its
+    gradient all-reduced once."""
     from feature_tracker_tpu_torch.models.raft import BatchNorm, Raft
 
+    b, h, w = shape
+    axes = len(mesh_shape)
+    m = mesh_shape.get("model", 1)
+    b //= mesh_shape["data"]
+    t = cfg.max_iterations
     calls = nbytes = 0
     for name, module in Raft(cfg, device="cpu").named_modules():
         if isinstance(module, BatchNorm):
             runs = 2 if name.startswith("feature_enc") else 1
             calls += 2 * runs
             nbytes += 2 * runs * 2 * module.num_features * 4
-    return (calls + 4,
-            nbytes + 2 * cfg.max_iterations * 4 + 4 + 4 * n_params)
+    loss = 4 * t * (4 if unsup else 1)
+    out = {"all_reduce": (axes * (calls + 4),
+                          axes * (nbytes + 2 * loss + 4 + 4 * n_params))}
+    if m == 1:
+        return out
+    halos = _halo_convs(cfg, t, unsup)
+    size = [m * 2 * k * b * (w // s) * c * 4 for k, c, s, _ in halos]
+    out["halo"] = (len(halos), sum(size))
+    out["halo_backward"] = (sum(g for *_, g in halos),
+                            sum(n for n, (*_, g) in zip(size, halos) if g))
+    rows = -(-h // 8 // m)
+    gather = m * rows * b * (w // 8) * cfg.feature_channels * 4
+    out["row_gather"] = out["row_gather_backward"] = (1, gather)
+    return out
+
+
+def band_mesh_case(label, results, mesh_shape, cfg, n_params, shape, unsup,
+                   want, want_m, spread=None):
+    """The ranks' results of ``data_parallel_case`` on a mesh with a
+    'model' axis: each rank's band rows (its first row and rows, and the
+    rows of its first encoder activation and of fmap0) against the band
+    rule, its collectives against ``expected_train_comm``, the ranks'
+    states against each other (bit for bit) and against the one-rank step
+    ``want`` by ``train_state_agree`` (the loss alone where ``want`` is
+    None)."""
+    from feature_tracker_tpu_torch.train.raft_train import TrainState
+
+    b, h, w = shape
+    m = mesh_shape["model"]
+    units = h // 8
+    sizes = [8 * (units // m + (i < units % m)) for i in range(m)]
+    comm = expected_train_comm(cfg, n_params, shape, mesh_shape, unsup)
+    states = []
+    for rank, got in enumerate(results):
+        j = rank % m
+        rows = got["band_rows"]
+        print(f"[parallel] {label} rank {rank} of {mesh_shape}: rows "
+              f"{rows['start']}..{rows['start'] + rows['rows'] - 1} of {h}; "
+              f"first encoder activation {rows['stem']} rows, fmap0 "
+              f"{rows['fmap0']} rows")
+        check(rows == {"start": sum(sizes[:j]), "rows": sizes[j],
+                       "stem": sizes[j], "fmap0": sizes[j] // 8},
+              f"{label} rank {rank}: not its band's rows")
+        for op, (calls, nbytes) in comm.items():
+            print(f"[parallel] {label} rank {rank} {op}: "
+                  f"{got['comm'].get(op)} (expected {calls} calls, "
+                  f"{nbytes} B)")
+        check(got["comm"] == {op: {"calls": c, "bytes": n}
+                              for op, (c, n) in comm.items()},
+              f"{label} rank {rank}: unexpected collectives")
+        state = TrainState(**to_device(got["state"], "cpu"))
+        metrics = {k: got[k] for k in want_m}
+        if want is None:
+            for k, v in want_m.items():
+                a, ref = float(metrics[k]), float(v)
+                print(f"[compare] {label} rank {rank}: {k} {a:.6f} against "
+                      f"{ref:.6f} on one rank")
+                check(abs(a - ref) <= TRAIN_LOSS_RTOL * abs(ref),
+                      f"{label}: {k} differs")
+        else:
+            train_state_agree(f"{label} rank {rank} vs one rank on the card",
+                              state, want, metrics, want_m, spread)
+        states.append(state)
+    check(all(torch.equal(a, c) for s in states[1:]
+              for a, c in zip(states[0].leaves(), s.leaves())),
+          f"{label}: the ranks' states differ")
 
 
 def timed_steps(label, run, card, steps, extra=""):
@@ -2218,6 +2351,7 @@ def train_paths(dev, card, weights_before):
         SuperPoint,
         SuperPointConfig,
     )
+    from feature_tracker_tpu_torch.ops import cuda_raft_lookup
     from feature_tracker_tpu_torch.parallel.multihost_ba import (
         run_cases,
         spawn,
@@ -2298,9 +2432,9 @@ def train_paths(dev, card, weights_before):
         cbox[0], m = cstep(cbox[0], *cpool[0])
         closses.append(m["loss"])
 
-    timed_steps(f"9a RAFT train step {cb} x {ch}x{cw}, {citers} iterations "
-                "(FlyingChairs crop and iterations of the RAFT paper)", crun,
-                card, 13)
+    _, c_peak = timed_steps(f"9a RAFT train step {cb} x {ch}x{cw}, {citers} "
+                            "iterations (FlyingChairs crop and iterations of "
+                            "the RAFT paper)", crun, card, 13)
     check(all(np.isfinite([float(x) for x in closses])), "9a chairs losses")
     t_phase = stage_done("9a (RAFT train step)", t_phase)
 
@@ -2308,9 +2442,9 @@ def train_paths(dev, card, weights_before):
     ustep = make_unsup_train_step(cfg, tcfg)
     u_one, um = ustep(start.to(dev), pool[0][0], pool[0][1])
     u_cpu, umc = ustep(start, pool[0][0].cpu(), pool[0][1].cpu())
+    uspread = train_spread(ustep, start, pool[0][:2])
     train_state_agree(f"9b RAFT unsupervised step {b} x {h}x{w}, card vs CPU",
-                      u_one, u_cpu, um, umc,
-                      train_spread(ustep, start, pool[0][:2]))
+                      u_one, u_cpu, um, umc, uspread)
     ubox = [start.to(dev)]
 
     def urun():
@@ -2319,29 +2453,104 @@ def train_paths(dev, card, weights_before):
     timed_steps(f"9b RAFT unsupervised step {b} x {h}x{w}", urun, card, 13)
     t_phase = stage_done("9b (unsupervised step)", t_phase)
 
-    # 9c. Two ranks on the one card: the batch of 4 split 2 + 2.
+    # 9c. Two ranks on the one card: the batch of 4 split 2 + 2. The same
+    # two ranks then run 9g's (1, 2) meshes (each case makes its mesh).
     t_spawn = time.perf_counter()
     batch0 = [t.cpu().numpy() for t in pool[0]]
+    cbatch = [t.cpu().numpy() for t in cpool[0]]
+    band2 = functools.partial(data_parallel_case, shape=BAND_MESHES[0])
     with tempfile.TemporaryDirectory() as store:
         ranks = spawn(run_cases, 2, store, "cuda",
-                      [(data_parallel_case, (cfg, tcfg, start, *batch0))],
+                      [(data_parallel_case, (cfg, tcfg, start, *batch0)),
+                       (functools.partial(band2, time_steps=BAND_STEPS),
+                        (cfg, tcfg, start, *batch0)),
+                       (band2, (cfg, tcfg, start, *batch0[:2])),
+                       (band2, (ccfg, tcfg, start, *cbatch))],
                       device="cuda", timeout=600.0)
-    print(f"[parallel] 9c two ranks on the card (gloo, FileStore): "
-          f"{time.perf_counter() - t_spawn:.1f} s, start-up included")
-    calls, nbytes = expected_train_all_reduces(cfg, n_params)
-    for rank, (got,) in enumerate(ranks):
+    print(f"[parallel] 9c and 9g (i, ii) two ranks on the card (gloo, "
+          f"FileStore): {time.perf_counter() - t_spawn:.1f} s, start-up and "
+          f"{BAND_STEPS} timed steps included")
+    calls, nbytes = expected_train_comm(cfg, n_params, TRAIN_SHAPE,
+                                        {"data": 2})["all_reduce"]
+    for rank, (got, *_) in enumerate(ranks):
         state = TrainState(**to_device(got["state"], "cpu"))
         train_state_agree(f"9c rank {rank} of 2 vs one rank on the card",
                           state, one, {k: got[k] for k in ("loss", "epe")},
                           m_one, spread)
+        reduces = got["comm"]["all_reduce"]
         print(f"[parallel] 9c rank {rank} all-reduces: "
-              f"{got['all_reduce_calls']} calls, {got['all_reduce_bytes']} B "
+              f"{reduces['calls']} calls, {reduces['bytes']} B "
               f"(expected {calls} calls, {nbytes} B: the batch norms' "
               f"statistics both ways, the loss, the EPE, {n_params} "
               "gradients)")
-        check((got["all_reduce_calls"], got["all_reduce_bytes"])
-              == (calls, nbytes), f"9c rank {rank}: unexpected all-reduces")
+        check(got["comm"] == {"all_reduce": {"calls": calls,
+                                             "bytes": nbytes}},
+              f"9c rank {rank}: unexpected collectives")
     t_phase = stage_done("9c (two ranks, gloo)", t_phase)
+
+    # 9g. Height sharding: the rows of every image split into bands over a
+    # mesh's 'model' axis, ranks sharing the one card through gloo (which
+    # measures agreement, memory and traffic, not scaling).
+    two, four = BAND_MESHES
+    band_mesh_case("9g (i) supervised", [r[1] for r in ranks], two, cfg,
+                   n_params, TRAIN_SHAPE, False, one, m_one, spread)
+    print(f"[train] 9g (i) (1, 2) supervised step {b} x {h}x{w}: "
+          + ", ".join(f"rank {i} {r[1]['step_ms']:.4f} ms"
+                      for i, r in enumerate(ranks))
+          + f" per step (host clock, median of {BAND_STEPS - 1} after one; "
+          f"two processes on one card) against {ms:.4f} ms on one rank (9a); "
+          f"card {card}")
+    band_mesh_case("9g (i) unsupervised", [r[2] for r in ranks], two, cfg,
+                   n_params, TRAIN_SHAPE, True, u_one, um, uspread)
+    band_mesh_case("9g (ii) FlyingChairs crop", [r[3] for r in ranks], two,
+                   ccfg, n_params, CHAIRS[:3], False, None,
+                   {"loss": closses[0]})
+    # One rank on one band's rows alone: what the rows cost, apart from
+    # the halo rows and the gathered feature map.
+    half = [t[:, :ch // 2] for t in cpool[0]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 20
+    cstep(start.to(dev), *half)
+    half_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"[train] 9g (ii) (1, 2) step {cb} x {ch}x{cw} x {citers}: peak "
+          "memory " + ", ".join(
+              f"rank {i} {r[3]['peak_bytes'] / 2 ** 20:.1f} MiB"
+              for i, r in enumerate(ranks))
+          + f" against {c_peak:.1f} MiB on one rank (9a) and "
+          f"{half_peak:.1f} MiB for one rank's step on {ch // 2} rows alone "
+          f"({half_peak - before:.1f} MiB of it the step's own; states "
+          f"included); card {card}")
+    t_spawn = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        quads = spawn(run_cases, 4, store, "cuda",
+                      [(functools.partial(data_parallel_case, shape=four),
+                        (cfg, tcfg, start, *batch0))],
+                      device="cuda", timeout=600.0)
+    print(f"[parallel] 9g (iii) four ranks on the card: "
+          f"{time.perf_counter() - t_spawn:.1f} s, start-up included")
+    band_mesh_case("9g (iii) supervised", [r[0] for r in quads], four, cfg,
+                   n_params, TRAIN_SHAPE, False, one, m_one, spread)
+    lcfg = dataclasses.replace(cfg, low_memory=True)
+    lstep = make_train_step(lcfg, tcfg)
+    launches = cuda_raft_lookup.lookup_correlation_cuda.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_one, lm = lstep(start.to(dev), *pool[0])
+    torch.cuda.synchronize()
+    l_s = time.perf_counter() - t0
+    l_cpu, lmc = lstep(start, *(t.cpu() for t in pool[0]))
+    check(cuda_raft_lookup.lookup_correlation_cuda.launches == launches,
+          "9g (iv): low_memory training launched the lookup kernel")
+    # The same function as 9a's step (another route to the correlation), so
+    # 9a's one-ulp spread.
+    train_state_agree(f"9g (iv) low_memory supervised step {b} x {h}x{w}, "
+                      "card vs CPU", l_one, l_cpu, lm, lmc, spread)
+    print(f"[train] 9g (iv) low_memory step on the card: {l_s * 1e3:.1f} ms "
+          "(host clock, one step from cold; the plain on-the-fly lookup, no "
+          f"kernel launch); card {card}")
+    t_phase = stage_done("9g (height sharding, low_memory training)",
+                         t_phase)
 
     # 9d. Checkpoint at step 5, restore into a fresh state, step 6 both ways.
     s5 = start.to(dev)

@@ -43,7 +43,9 @@ place; the feature encoder runs on each image separately, as in the Flax
 model, so each image has its own batch statistics and the running ones
 are updated twice; gradients flow through every refinement iteration (no
 detach between them). The trainers (``train/raft_train.py``) evaluate it
-with ``torch.func.functional_call`` over the tensors of a ``TrainState``.
+with ``torch.func.functional_call`` over the tensors of a ``TrainState``;
+on a mesh with a ``model`` axis they pass ``bands`` and each rank computes
+on its band of image rows (``parallel/height.py``).
 """
 
 from __future__ import annotations
@@ -109,7 +111,14 @@ def full_float32():
 class Conv(nn.Conv2d):
     """Convolution on ``[B, H, W, C]`` with torch-style ``k // 2`` padding.
     Parameters are float32; they and the input are cast to ``dtype`` for
-    the product."""
+    the product.
+
+    With ``bands`` (``parallel/height.py::RowBands``, height sharding) the
+    input is this rank's band of rows: a kernel taller than one row reads
+    the ``kh // 2`` rows of the bands around it through ``bands.halo`` and
+    pads W only (``haloed``: the input carries those rows already). A band
+    starts on an even row, so a stride-2 kernel keeps its phase and the
+    strided 1x1 subsample stays local."""
 
     def __init__(self, in_features, features, kernel, stride=1,
                  dtype=torch.float32):
@@ -118,16 +127,28 @@ class Conv(nn.Conv2d):
                          padding=(kh // 2, kw // 2))
         self.compute_dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, bands=None, haloed=False):
         dt = self.compute_dtype
+        padding = self.padding
+        if bands is not None and self.kernel_size[0] > 1:
+            if not haloed:
+                x = bands.halo(x, self.kernel_size[0] // 2)
+            padding = (0, padding[1])
         x, stride = x.permute(0, 3, 1, 2), self.stride
         if self.kernel_size == (1, 1) and stride != (1, 1):
             # The same products as the strided 1x1 convolution; PyTorch's
             # CPU backward of that one on channels-last input crashes.
             x, stride = x[:, :, ::stride[0], ::stride[1]], 1
         y = F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt), stride,
-                     self.padding)
+                     padding)
         return y.permute(0, 2, 3, 1)
+
+
+def _halo(x, bands, k):
+    """``x`` with ``k`` halo rows from the bands around it (unchanged
+    without ``bands``): one exchange for several convolutions that read
+    the same input."""
+    return x if bands is None else bands.halo(x, k)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -141,8 +162,10 @@ class BatchNorm(nn.BatchNorm2d):
 
     ``train=True`` is Flax's training mode: the batch's mean and biased
     variance ``E[x^2] - E[x]^2`` (``use_fast_variance``), summed over the
-    ranks of ``mesh`` when one is set (data-parallel training), and the
-    running statistics updated in place to ``0.9 * old + 0.1 * batch``.
+    ranks of ``mesh`` when one is set (data-parallel training; with
+    ``bands``, the input is a band of rows and the count is the whole
+    batch's), and the running statistics updated in place to
+    ``0.9 * old + 0.1 * batch``.
     ``F.batch_norm``'s training mode would update the running variance
     with the unbiased variance instead."""
 
@@ -151,9 +174,9 @@ class BatchNorm(nn.BatchNorm2d):
     def __init__(self, features):
         super().__init__(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x, train: bool = False):
+    def forward(self, x, train: bool = False, bands=None):
         if train:
-            return self._batch_statistics(x)
+            return self._batch_statistics(x, bands)
         if self.running_mean.requires_grad or self.running_var.requires_grad:
             return self._normalize(x, self.running_mean, self.running_var)
         y = F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
@@ -167,14 +190,15 @@ class BatchNorm(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return ((x.float() - mean) * mul + self.bias).to(x.dtype)
 
-    def _batch_statistics(self, x):
+    def _batch_statistics(self, x, bands):
         xf = x.float()
         count = xf.numel() // xf.shape[-1]
         sums = torch.stack([xf.sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))])
         if self.mesh is not None:
+            from feature_tracker_tpu_torch.parallel.height import whole_count
             from feature_tracker_tpu_torch.parallel.mesh import all_reduce_sum
             sums = all_reduce_sum(self.mesh, sums)
-            count *= self.mesh.size()
+            count = whole_count(self.mesh, bands, count, x.shape[1])
         mean, mean2 = divide(sums, float(count))
         var = torch.maximum(torch.zeros_like(mean), mean2 - mean * mean)
         with torch.no_grad():
@@ -198,11 +222,11 @@ class ResNetBlock(nn.Module):
             self.Conv_2 = Conv(in_features, features, 1, stride, dtype)
             self.BatchNorm_2 = BatchNorm(features)
 
-    def forward(self, x, train: bool = False):
-        h = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
-        h = self.BatchNorm_1(self.Conv_1(h), train)
+    def forward(self, x, train: bool = False, bands=None):
+        h = F.relu(self.BatchNorm_0(self.Conv_0(x, bands), train, bands))
+        h = self.BatchNorm_1(self.Conv_1(h, bands), train, bands)
         if self.projects:
-            x = self.BatchNorm_2(self.Conv_2(x), train)
+            x = self.BatchNorm_2(self.Conv_2(x, bands), train, bands)
         return F.relu(h + x)
 
 
@@ -218,11 +242,12 @@ class FeatureEncoder(nn.Module):
                     ResNetBlock(widths[i], widths[i + 1], 1 + i % 2, dtype))
         self.Conv_1 = Conv(out_channels, out_channels, 3, 1, dtype)
 
-    def forward(self, x, train: bool = False):
-        x = F.relu(self.Conv_0(x))
+    def forward(self, x, train: bool = False, bands=None):
+        x = F.relu(self.Conv_0(x, bands))
+        self.stem_rows = x.shape[1]
         for i in range(6):
-            x = getattr(self, f"ResNetBlock_{i}")(x, train)
-        return F.relu(self.Conv_1(x))
+            x = getattr(self, f"ResNetBlock_{i}")(x, train, bands)
+        return F.relu(self.Conv_1(x, bands))
 
 
 def _pool2x2(x):
@@ -240,13 +265,16 @@ def compute_correlation_pyramid(fmap0, fmap1, num_levels: int):
       fmap0, fmap1: ``[B, H, W, C]``.
 
     Returns:
-      list of ``[B*H*W, H_i, W_i]`` volumes (level 0 first).
+      list of ``[B*H*W, H_i, W_i]`` volumes (level 0 first). Under height
+      sharding ``fmap0`` is this rank's band of rows and ``fmap1`` the
+      whole map: each rank holds its band's rows of the volumes.
     """
     b, h, w, c = fmap0.shape
+    h1, w1 = fmap1.shape[1:3]
     f0 = fmap0.reshape(b, h * w, c)
-    f1 = fmap1.reshape(b, h * w, c)
+    f1 = fmap1.reshape(b, h1 * w1, c)
     corr = torch.einsum("bnc,bmc->bnm", f0, f1) / math.sqrt(c)
-    pyramid = [corr.reshape(b * h * w, h, w)]
+    pyramid = [corr.reshape(b * h * w, h1, w1)]
     for _ in range(num_levels - 1):
         pyramid.append(_pool2x2(pyramid[-1]))
     return pyramid
@@ -378,13 +406,17 @@ class SepConvGru(nn.Module):
                 setattr(self, f"conv_{gate}_{direction}",
                         Conv(in_features + hidden, hidden, shape, 1, dtype))
 
-    def forward(self, x, h):
+    def forward(self, x, h, bands=None):
         for d in "hv":
+            # The (1, k) convolutions need no halo; z and r of the (k, 1)
+            # ones read the same rows.
             xh = torch.cat([x, h], dim=-1)
-            z = torch.sigmoid(getattr(self, f"conv_z_{d}")(xh))
-            r = torch.sigmoid(getattr(self, f"conv_r_{d}")(xh))
+            if d == "v":
+                xh = _halo(xh, bands, self.conv_z_v.kernel_size[0] // 2)
+            z = torch.sigmoid(getattr(self, f"conv_z_{d}")(xh, bands, True))
+            r = torch.sigmoid(getattr(self, f"conv_r_{d}")(xh, bands, True))
             q = torch.tanh(getattr(self, f"conv_q_{d}")(
-                torch.cat([x, r * h], dim=-1)))
+                torch.cat([x, r * h], dim=-1), bands))
             h = (1 - z) * h + z * q
         return h
 
@@ -404,10 +436,10 @@ class MotionEncoder(nn.Module):
         self.Conv_4 = Conv(c.correlation_out_channels + c.flow_out_channels,
                            c.motion_out_channels - 2, 3, 1, dt)
 
-    def forward(self, corr, flow):
-        t_corr = F.relu(self.Conv_1(F.relu(self.Conv_0(corr))))
-        t_flow = F.relu(self.Conv_3(F.relu(self.Conv_2(flow))))
-        out = F.relu(self.Conv_4(torch.cat([t_corr, t_flow], dim=-1)))
+    def forward(self, corr, flow, bands=None):
+        t_corr = F.relu(self.Conv_1(F.relu(self.Conv_0(corr)), bands))
+        t_flow = F.relu(self.Conv_3(F.relu(self.Conv_2(flow, bands)), bands))
+        out = F.relu(self.Conv_4(torch.cat([t_corr, t_flow], dim=-1), bands))
         return torch.cat([out, flow], dim=-1)
 
 
@@ -430,20 +462,23 @@ class UpdateBlock(nn.Module):
         self.mask_out = Conv(c.mask_hidden_channels, 8 * 8 * 9, 1, 1,
                              torch.float32)
 
-    def forward(self, net, inp, corr, flow):
-        motion = self.MotionEncoder_0(corr, flow)
-        net = self.SepConvGru_0(torch.cat([inp, motion], dim=-1), net)
-        delta = self.flow_conv2(F.relu(self.flow_conv1(net)))
-        mask = self.mask_out(F.relu(self.mask_hidden(net)))
+    def forward(self, net, inp, corr, flow, bands=None):
+        motion = self.MotionEncoder_0(corr, flow, bands)
+        net = self.SepConvGru_0(torch.cat([inp, motion], dim=-1), net, bands)
+        rows = _halo(net, bands, 1)             # both 3x3 heads read net
+        delta = self.flow_conv2(F.relu(self.flow_conv1(rows, bands, True)),
+                                bands)
+        mask = self.mask_out(F.relu(self.mask_hidden(rows, bands, True)))
         return net, 0.25 * mask, delta
 
 
-def upsample_flow_convex(flow, mask):
+def upsample_flow_convex(flow, mask, bands=None):
     """Learned convex 8x upsampling.
 
     Args:
       flow: ``[B, H, W, 2]``; mask: ``[B, H, W, 576]``, the channels being
-      (neighbour, u, v) = (9, 8, 8).
+      (neighbour, u, v) = (9, 8, 8). With ``bands``, this rank's band of
+      rows: the rows around it come from the neighbouring bands.
 
     Returns:
       ``[B, 8H, 8W, 2]``.
@@ -451,7 +486,10 @@ def upsample_flow_convex(flow, mask):
     b, h, w, _ = flow.shape
     mask = torch.softmax(mask.reshape(b, h, w, 9, 8, 8), dim=3)
     # 3x3 neighbourhoods of 8*flow with zero padding, i-major, j-minor.
-    fpad = F.pad(8.0 * flow, (0, 0, 1, 1, 1, 1))
+    if bands is None:
+        fpad = F.pad(8.0 * flow, (0, 0, 1, 1, 1, 1))
+    else:
+        fpad = F.pad(bands.halo(8.0 * flow, 1), (0, 0, 1, 1))
     up = 0.0
     for n, (i, j) in enumerate((i, j) for i in range(3) for j in range(3)):
         neigh = fpad[:, i:i + h, j:j + w, None, None, :]    # [B,H,W,1,1,2]
@@ -473,9 +511,19 @@ class Raft(nn.Module):
     per-iteration lookup goes through ``lookup_fn``, which is
     ``lookup_correlation_cuda``: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. The kernel has no backward, so training
-    with ``cfg.low_memory`` raises on the card and takes the differentiable
-    plain version on the CPU. With a ``mesh`` (a data-parallel trainer's),
-    training-mode batch statistics are summed over its ranks."""
+    with ``cfg.low_memory`` takes the differentiable plain version
+    (``lookup_correlation_otf``) on either device, as JAX does off a TPU.
+    With a ``mesh`` (a trainer's), training-mode batch statistics are
+    summed over its ranks.
+
+    ``bands`` (``parallel/height.py::RowBands``, a trainer's on a mesh with
+    a ``model`` axis) makes the images this rank's band of rows: every
+    layer computes on the band, the second image's feature map is gathered
+    whole for the correlation (this rank's rows of the volume, or of the
+    on-the-fly lookup, against every row), and the flows returned are the
+    band's rows. ``band_rows`` then records the band's first row and rows
+    (``"start"``, ``"rows"``) and the row counts of the first encoder
+    activation (``"stem"``) and of ``fmap0``."""
 
     def __init__(self, cfg: RaftConfig = RaftConfig(), device="cuda",
                  mesh=None):
@@ -498,22 +546,18 @@ class Raft(nn.Module):
         self.to(self.device).to(memory_format=torch.channels_last)
         self.eval()
 
-    def forward(self, ref_image, cur_image, train: bool = False):
+    def forward(self, ref_image, cur_image, train: bool = False,
+                bands=None):
         if not train:
             with torch.inference_mode(), full_float32():
-                return self._forward(ref_image, cur_image, False)
-        if self.cfg.low_memory and self.device.type == "cuda":
-            raise ValueError(
-                "RAFT training with low_memory=True: the CUDA lookup kernel "
-                "has no backward; train with low_memory=False (the "
-                "all-pairs volume, as the JAX trainers do)")
+                return self._forward(ref_image, cur_image, False, bands)
         with full_float32():
-            flows = self._forward(ref_image, cur_image, True)
+            flows = self._forward(ref_image, cur_image, True, bands)
         stats = {k: v for k, v in self.named_buffers()
                  if k.endswith(("running_mean", "running_var"))}
         return flows, flax_order(stats)
 
-    def _forward(self, ref_image, cur_image, train):
+    def _forward(self, ref_image, cur_image, train, bands):
         c = self.cfg
         ref, cur = (
             (2.0 * (torch.as_tensor(img, dtype=torch.float32,
@@ -525,15 +569,21 @@ class Raft(nn.Module):
             # One call per image, as in the Flax model: each has its own
             # batch statistics, and the second reads the running statistics
             # as the first left them.
-            fmap0 = self.feature_enc(ref, True).float()
-            fmap1 = self.feature_enc(cur, True).float()
+            fmap0 = self.feature_enc(ref, True, bands).float()
+            fmap1 = self.feature_enc(cur, True, bands).float()
         else:
             # Both images in one pass: the statistics are the running ones,
             # so the batch does not couple its items.
-            fmaps = self.feature_enc(torch.cat([ref, cur])).float()
+            fmaps = self.feature_enc(torch.cat([ref, cur]), False,
+                                     bands).float()
             fmaps = fmaps.contiguous()
             fmap0, fmap1 = fmaps[:b], fmaps[b:]
-        ctx = self.context_enc(ref, train)
+        if bands is not None:
+            self.band_rows = {"start": bands.start, "rows": ref.shape[1],
+                              "stem": self.feature_enc.stem_rows,
+                              "fmap0": fmap0.shape[1]}
+            fmap1 = bands.gather(fmap1)
+        ctx = self.context_enc(ref, train, bands)
         inp = ctx[..., :c.context_channels]
         net = ctx[..., c.context_channels:]
 
@@ -546,8 +596,9 @@ class Raft(nn.Module):
                 fmap0, fmap1, c.correlation_pyramid_levels)
 
         _, h, w, _ = fmap0.shape
+        y0 = 0 if bands is None else bands.offset(h)    # rows are global
         xs = torch.arange(w, dtype=torch.float32, device=self.device)
-        ys = torch.arange(h, dtype=torch.float32, device=self.device)
+        ys = torch.arange(y0, y0 + h, dtype=torch.float32, device=self.device)
         gx, gy = torch.meshgrid(xs, ys, indexing="xy")
         ref_locs = torch.stack([gx, gy], dim=-1)[None].expand(
             b, h, w, 2).contiguous()
@@ -562,11 +613,12 @@ class Raft(nn.Module):
                                           c.correlation_radius)
             flow = (cur_locs - ref_locs).to(c.dtype)
             net, up_mask, delta = self.UpdateBlock_0(
-                net, inp, corr.to(c.dtype), flow)
+                net, inp, corr.to(c.dtype), flow, bands)
             cur_locs = cur_locs + delta.float()
             if not c.upsample_last_only:
-                predictions.append(
-                    upsample_flow_convex(cur_locs - ref_locs, up_mask))
+                predictions.append(upsample_flow_convex(
+                    cur_locs - ref_locs, up_mask, bands))
         if c.upsample_last_only:
-            return upsample_flow_convex(cur_locs - ref_locs, up_mask)[None]
+            return upsample_flow_convex(cur_locs - ref_locs, up_mask,
+                                        bands)[None]
         return torch.stack(predictions)

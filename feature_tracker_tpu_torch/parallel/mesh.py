@@ -5,10 +5,13 @@ The JAX package lays devices out in a ``jax.sharding.Mesh`` and lets GSPMD
 insert the collectives. Here a mesh is a ``DeviceMesh`` over the ranks of
 the default process group: one process per rank (``torchrun``, or the
 spawn helper of ``parallel/multihost_ba.py``), each computing on its own
-contiguous slice of the feature or landmark axis, with every cross-rank
-step an explicit collective issued through :func:`_all_reduce` or
-:func:`_all_gather`. Those two count their calls and bytes per operation
-(:func:`comm_stats`), the way the kernels' wrappers count their launches.
+contiguous slice of the feature or landmark axis (or, for the RAFT
+trainers, of the batch and the image rows: ``parallel/height.py``), with
+every cross-rank step an explicit collective made through
+:func:`_all_reduce`, :func:`_all_gather` or, over one axis and
+differentiably, :func:`all_gather_axis`. They count their calls and bytes
+per operation (:func:`comm_stats`), the way the kernels' wrappers count
+their launches.
 
 The layout convention is JAX's: the fast intra-host axis carries the data
 axis; the slower inter-host axis (``dcn``) is the OUTER axis of the same
@@ -134,9 +137,11 @@ def pad_to_multiple(n: int, m: int) -> int:
 def comm_stats() -> dict:
     """Calls and bytes of every collective the layer issued since the last
     :func:`reset_comm_stats`, by operation: ``{"all_reduce": {"calls": ..,
-    "bytes": ..}, "all_gather": {...}}``. An all-reduce counts its payload,
-    an all-gather its gathered output, per call (one call per mesh
-    axis)."""
+    "bytes": ..}, "all_gather": {...}}``, and the operations named in
+    :func:`all_gather_axis` calls (``halo``, ``row_gather`` and their
+    ``_backward`` all-reduces). An all-reduce counts its payload, an
+    all-gather its gathered output, per call (one call per mesh axis for
+    the first two)."""
     return {op: dict(v) for op, v in _COMM.items()}
 
 
@@ -187,6 +192,39 @@ def _all_gather(mesh: DeviceMesh, tensor: torch.Tensor) -> torch.Tensor:
         tensor = torch.cat(parts)
         _count("all_gather", tensor)
     return tensor
+
+
+class _AxisAllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, mesh, axis, op):
+        ctx.mesh, ctx.axis, ctx.op = mesh, axis, op
+        group = mesh.get_group(axis)
+        tensor = tensor.contiguous()
+        parts = [torch.empty_like(tensor)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, tensor, group=group)
+        out = torch.stack(parts)
+        _count(op, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.mesh.get_group(ctx.axis))
+        _count(ctx.op + "_backward", grad)
+        return grad[ctx.mesh.get_local_rank(ctx.axis)], None, None, None
+
+
+def all_gather_axis(mesh: DeviceMesh, axis: str, tensor: torch.Tensor,
+                    op: str) -> torch.Tensor:
+    """Every rank's ``tensor`` over the mesh axis ``axis`` (the ranks that
+    share this rank's other coordinates), stacked on a new first dimension
+    in the axis' order, as a tensor that autograd differentiates. The
+    backward is the transpose: the gradient of every rank's copy of a part
+    is summed over the axis (one all-reduce) and its owner keeps it. Both
+    directions are counted by :func:`comm_stats`, under ``op`` and
+    ``op + "_backward"``; every rank of the axis passes the same shape."""
+    return _AxisAllGather.apply(tensor, mesh, axis, op)
 
 
 def _shard_index(mesh: DeviceMesh) -> int:

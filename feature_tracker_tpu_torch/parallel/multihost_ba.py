@@ -64,10 +64,12 @@ RANKS_PER_SIMULATED_HOST = 2
 _GROUP_TIMEOUT = datetime.timedelta(seconds=600)
 
 
-def _rank_main(rank, world_size, store_path, device, fn, args, results):
+def _rank_main(rank, world_size, store_path, device, threads, fn, args,
+               results):
     """One spawned rank: join the group, run ``fn(*args)``, report."""
     try:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+        torch.set_num_threads(threads or max(1, (os.cpu_count() or 1)
+                                             // world_size))
         if device == "cuda":
             torch.cuda.set_device(rank % torch.cuda.device_count())
         dist.init_process_group(
@@ -82,7 +84,7 @@ def _rank_main(rank, world_size, store_path, device, fn, args, results):
 
 
 def spawn(fn, world_size: int, store_dir: str, *args, device="cuda",
-          timeout: float = 900.0) -> list:
+          timeout: float = 900.0, threads: int | None = None) -> list:
     """Run ``fn(*args)`` on ``world_size`` new processes (the ``spawn``
     start method), joined in one default process group: gloo over a
     ``FileStore`` in ``store_dir``, which must be fresh. With ``device``
@@ -90,14 +92,16 @@ def spawn(fn, world_size: int, store_dir: str, *args, device="cuda",
     ``"cpu"``) rank r works on card r % count. ``fn`` and ``args`` are
     pickled, so ``fn`` is a top-level function. Returns the ranks' return
     values in rank order; raises on the first rank that fails (and stops
-    the others) or after ``timeout`` seconds."""
+    the others) or after ``timeout`` seconds. Each rank computes with
+    ``threads`` intra-op threads (default: the machine's cores shared out
+    over the ranks)."""
     device = resolve_device(device).type
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     store_path = os.path.join(store_dir, "store")
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world_size, store_path, device, fn, args,
-                               results))
+                         args=(r, world_size, store_path, device, threads,
+                               fn, args, results))
              for r in range(world_size)]
     for p in procs:
         p.start()

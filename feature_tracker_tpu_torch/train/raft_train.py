@@ -14,19 +14,23 @@ JAX's: ``jnp.clip`` (``minimum(maximum(.))``) passes half the gradient at
 its bounds and ``jnp.abs`` passes 1 at 0, where ``torch.clamp`` passes 1
 and ``torch.abs`` 0.
 
-Data parallel: with a mesh, every rank is given the whole batch and keeps
-its slice of the batch axis (the ``data`` axis; ``shard_features``'s
-slices), batch normalisation sums its statistics over the ranks, the
-loss and the metrics are those of the whole batch, and the gradient is
-all-reduced once per step, so the result is the one-rank step's on the
-whole batch, as under JAX's ``jit`` with the batch sharded. Height
-sharding over a ``model`` axis (which needs halo exchanges in every
-convolution) is not ported: a mesh with ``model`` larger than 1 raises.
+On a mesh (``parallel.make_mesh``, axes ``data`` and ``model``), the
+JAX trainers' ``P("data", "model")``: every rank is given the whole batch
+and keeps the slice of the batch axis of its ``data`` coordinate and, with
+a ``model`` axis, the band of image rows of its ``model`` coordinate
+(``parallel/height.py::RowBands``). The model computes on the band, with
+the convolutions' halo rows and the correlation's second feature map
+fetched from the other bands; batch normalisation sums its statistics over
+the mesh, the loss and the metrics are those of the whole batch, and the
+gradient is all-reduced once per step. The result is the one-rank step's
+on the whole batch, as under JAX's ``jit``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import statistics
+import time
 
 import torch
 from torch.func import functional_call
@@ -40,6 +44,11 @@ from feature_tracker_tpu_torch.models.layers import (
     flax_order,
 )
 from feature_tracker_tpu_torch.models.raft import Raft, RaftConfig, full_float32
+from feature_tracker_tpu_torch.parallel.height import (
+    RowBands,
+    model_size,
+    whole_count,
+)
 from feature_tracker_tpu_torch.train.optim import (
     ClipAdamW,
     _flat,
@@ -130,13 +139,14 @@ def create_train_state(rng, raft_cfg: RaftConfig, train_cfg: RaftTrainConfig,
                       opt_state=make_optimizer(train_cfg).init(params))
 
 
-def _global(mesh, sums, count: int):
+def _global(mesh, bands, sums, count: int, rows: int):
     """(``sums`` of the whole batch, its element count): with a mesh, this
-    rank's sums are summed over its ranks, differentiably."""
+    rank's sums, over ``count`` elements in ``rows`` image rows, are summed
+    over its ranks, differentiably."""
     if mesh is None:
         return sums, count
     from feature_tracker_tpu_torch.parallel.mesh import all_reduce_sum
-    return all_reduce_sum(mesh, sums), count * mesh.size()
+    return all_reduce_sum(mesh, sums), whole_count(mesh, bands, count, rows)
 
 
 def _decay_weights(t: int, gamma: float, like):
@@ -146,9 +156,10 @@ def _decay_weights(t: int, gamma: float, like):
                                 device=like.device), k)
 
 
-def _sequence_loss(predictions, gt_flow, gamma: float, mesh):
+def _sequence_loss(predictions, gt_flow, gamma: float, mesh, bands=None):
     diff = _abs(predictions - gt_flow[None])
-    sums, count = _global(mesh, diff.sum((1, 2, 3, 4)), diff[0].numel())
+    sums, count = _global(mesh, bands, diff.sum((1, 2, 3, 4)),
+                          diff[0].numel(), diff.shape[2])
     l1 = divide(sums, float(count))
     return torch.sum(_decay_weights(predictions.shape[0], gamma,
                                     predictions) * l1)
@@ -163,16 +174,19 @@ def sequence_loss(predictions, gt_flow, gamma: float):
     return _sequence_loss(predictions, gt_flow, gamma, None)
 
 
-def _warp_bilinear(img, flow):
+def _warp_bilinear(img, flow, y0: int = 0):
     """Backward warp: sample ``img`` at p + flow(p).
 
-    img ``[B, H, W, C]``, flow ``[B, H, W, 2]`` (dx, dy). Returns
-    (warped ``[B, H, W, C]``, valid ``[B, H, W, 1]`` — 1 where all four
-    taps land inside the image)."""
+    img ``[B, H, W, C]``, flow ``[B, h, W, 2]`` (dx, dy) at the image's rows
+    ``y0`` to ``y0 + h - 1`` (all of them by default). Returns (warped
+    ``[B, h, W, C]``, valid ``[B, h, W, 1]`` — 1 where all four taps land
+    inside the image)."""
     b, h, w, c = img.shape
+    hf = flow.shape[1]
     gx, gy = torch.meshgrid(
         torch.arange(w, dtype=flow.dtype, device=flow.device),
-        torch.arange(h, dtype=flow.dtype, device=flow.device), indexing="xy")
+        torch.arange(y0, y0 + hf, dtype=flow.dtype, device=flow.device),
+        indexing="xy")
     x = gx[None] + flow[..., 0]
     y = gy[None] + flow[..., 1]
     valid = ((x >= 0) & (x <= w - 1) & (y >= 0)
@@ -188,8 +202,8 @@ def _warp_bilinear(img, flow):
     flat = img.reshape(b, h * w, c)
 
     def tap(yi, xi):
-        idx = (yi * w + xi).reshape(b, h * w, 1).expand(b, h * w, c)
-        return torch.gather(flat, 1, idx).reshape(b, h, w, c)
+        idx = (yi * w + xi).reshape(b, hf * w, 1).expand(b, hf * w, c)
+        return torch.gather(flat, 1, idx).reshape(b, hf, w, c)
 
     out = ((1 - fy) * (1 - fx) * tap(y0i, x0i)
            + (1 - fy) * fx * tap(y0i, x0i + 1)
@@ -198,14 +212,17 @@ def _warp_bilinear(img, flow):
     return out, valid
 
 
-def _smoothness_sums(flow, image):
+def _smoothness_sums(flow, image, flow_y=None, image_y=None):
     """(sums of the x and y terms, their element counts) of
-    :func:`_edge_aware_smoothness`."""
+    :func:`_edge_aware_smoothness`; the y terms are those of ``flow_y`` and
+    ``image_y`` where given (a band of rows with the row below it)."""
+    flow_y = flow if flow_y is None else flow_y
+    image_y = image if image_y is None else image_y
     di_x = _abs(image[:, :, 1:] - image[:, :, :-1]).mean(-1, keepdim=True)
-    di_y = _abs(image[:, 1:] - image[:, :-1]).mean(-1, keepdim=True)
+    di_y = _abs(image_y[:, 1:] - image_y[:, :-1]).mean(-1, keepdim=True)
     tx = torch.exp(divide(-di_x, 8.0)) * _abs(flow[:, :, 1:]
                                                  - flow[:, :, :-1])
-    ty = torch.exp(divide(-di_y, 8.0)) * _abs(flow[:, 1:] - flow[:, :-1])
+    ty = torch.exp(divide(-di_y, 8.0)) * _abs(flow_y[:, 1:] - flow_y[:, :-1])
     return torch.stack([tx.sum(), ty.sum()]), (tx.numel(), ty.numel())
 
 
@@ -219,24 +236,44 @@ def _edge_aware_smoothness(flow, image):
 
 
 def _photometric_loss(predictions, ref, cur, gamma: float,
-                      smooth_weight: float, mesh):
+                      smooth_weight: float, mesh, bands=None):
+    """With ``bands``, ``predictions`` are this rank's band of rows and
+    ``ref`` and ``cur`` the whole images: the warp reads ``cur`` at any row,
+    and the smoothness's y terms cross into the band below (one halo
+    row)."""
     t = predictions.shape[0]
+    ref_rows = ref if bands is None else bands.band(ref)
+    y0 = 0 if bands is None else bands.start
     rows = []
     for k in range(t):
-        warped, valid = _warp_bilinear(cur, predictions[k])
-        resid = divide(ref - warped, 255.0)
-        smooth, (nx, ny) = _smoothness_sums(divide(predictions[k], 8.0), ref)
+        warped, valid = _warp_bilinear(cur, predictions[k], y0)
+        resid = divide(ref_rows - warped, 255.0)
+        flow = divide(predictions[k], 8.0)
+        if bands is None:
+            smooth, (nx, ny) = _smoothness_sums(flow, ref)
+        else:
+            h = flow.shape[1]
+            below = h + (bands.start + h < bands.height)
+            flow_y = bands.halo(flow, 1)[:, 1:1 + below]
+            smooth, _ = _smoothness_sums(flow, ref_rows, flow_y,
+                                         ref[:, y0:y0 + below])
         rows.append(torch.cat([
             torch.stack([torch.sum(valid * torch.sqrt(resid * resid + 1e-6)),
                          torch.sum(valid)]), smooth]))
-    sums, _ = _global(mesh, torch.stack(rows), 0)
-    world = 1 if mesh is None else mesh.size()
+    sums, _ = _global(mesh, bands, torch.stack(rows), 0, 1)
+    if bands is None:
+        world = 1 if mesh is None else mesh.size()
+        nx, ny = nx * world, ny * world
+    else:                       # the whole batch's [B, H, W, 2] flows
+        b, _, w, c = predictions.shape[1:]
+        n, hh = b * bands.data, bands.height
+        nx, ny = n * hh * (w - 1) * c, n * (hh - 1) * w * c
     weights = _decay_weights(t, gamma, predictions)
     total = 0.0
     for k in range(t):
         photo = sums[k, 0] / torch.clamp(sums[k, 1], min=1.0)
-        smooth = (divide(sums[k, 2], float(nx * world))
-                  + divide(sums[k, 3], float(ny * world)))
+        smooth = (divide(sums[k, 2], float(nx))
+                  + divide(sums[k, 3], float(ny)))
         total = total + weights[k] * (photo + smooth_weight * smooth)
     return total
 
@@ -255,41 +292,46 @@ def _check_mesh(mesh) -> None:
     if mesh is None:
         return
     for name, size in zip(mesh.mesh_dim_names, mesh.shape):
-        if name != "data" and size > 1:
+        if name not in ("data", "model") and size > 1:
             raise ValueError(
-                f"mesh axis {name!r} of size {size}: the port's RAFT "
-                "trainers shard the batch over 'data' only; height "
-                "sharding over 'model' is ROADMAP.md section 1, item 8c")
+                f"mesh axis {name!r} of size {size}: the RAFT trainers "
+                "shard the batch over 'data' and the image height over "
+                "'model'")
 
 
 def _local_batch(mesh, arrays):
-    """This rank's slice of the batch axis of every array."""
+    """This rank's slice of the batch axis of every array: the slice of its
+    ``data`` coordinate, whole in height."""
     if mesh is None:
         return arrays
-    from feature_tracker_tpu_torch.parallel.sharded import shard_features
-    n = arrays[0].shape[0]
-    if n % mesh.size():
-        raise ValueError(f"a batch of {n} does not split over "
-                         f"{mesh.size()} ranks")
-    return shard_features(mesh, *arrays)[1:]
+    n, parts = arrays[0].shape[0], mesh.size() // model_size(mesh)
+    if n % parts:
+        raise ValueError(f"a batch of {n} does not split over {parts} "
+                         "ranks of the 'data' axis")
+    i = mesh.get_local_rank("data") if "data" in mesh.mesh_dim_names else 0
+    m = n // parts
+    return [a[i * m:(i + 1) * m] for a in arrays]
 
 
-def _mean_norm(flow, mesh):
+def _mean_norm(flow, mesh, bands=None):
     """Mean over pixels of |flow| (the last axis), over the whole batch."""
     norms = torch.linalg.vector_norm(flow, dim=-1)
     total, count = norms.sum(), norms.numel()
     if mesh is not None:
         from feature_tracker_tpu_torch.parallel.mesh import _all_reduce
         total = _all_reduce(mesh, total.clone())
-        count *= mesh.size()
+        count = whole_count(mesh, bands, count, norms.shape[1])
     return divide(total, float(count))
 
 
 def _make_step(raft_cfg: RaftConfig, train_cfg: RaftTrainConfig, mesh,
                loss_fn, metrics_fn):
-    """The step shared by both trainers: ``loss_fn(preds, batch, mesh)``
-    is the whole batch's loss, ``metrics_fn(preds, batch, mesh)`` the
-    metrics besides it."""
+    """The step shared by both trainers: ``loss_fn(preds, batch, mesh,
+    bands)`` is the whole batch's loss, ``metrics_fn(preds, batch, mesh,
+    bands)`` the metrics besides it; ``batch`` is this rank's slice of the
+    batch axis, whole in height, ``preds`` the band's rows with ``bands``.
+    The step's ``models`` attribute holds the model of each device it ran
+    on."""
     _check_mesh(mesh)
     tx = make_optimizer(train_cfg)
     models = {}
@@ -303,15 +345,18 @@ def _make_step(raft_cfg: RaftConfig, train_cfg: RaftTrainConfig, mesh,
         dev = state.step.device
         batch = [torch.as_tensor(a, dtype=torch.float32, device=dev)
                  for a in batch]
+        bands = (None if mesh is None or model_size(mesh) == 1
+                 else RowBands(mesh, batch[0].shape[1]))
         batch = _local_batch(mesh, batch)
+        images = [a if bands is None else bands.band(a) for a in batch[:2]]
         flat = _flat(state.params).requires_grad_()
         params = _unflat(flat, state.params)
         stats = {k: v.clone() for k, v in state.batch_stats.items()}
         with full_float32():
             preds, new_stats = functional_call(
-                model_on(dev), {**params, **stats}, (batch[0], batch[1]),
-                {"train": True})
-            loss = loss_fn(preds, batch, mesh)
+                model_on(dev), {**params, **stats}, tuple(images),
+                {"train": True, "bands": bands})
+            loss = loss_fn(preds, batch, mesh, bands)
             # Every rank holds the whole batch's loss; each backpropagates
             # its share, and the all-reduces inside the loss sum them.
             world = 1 if mesh is None else mesh.size()
@@ -327,9 +372,10 @@ def _make_step(raft_cfg: RaftConfig, train_cfg: RaftTrainConfig, mesh,
             batch_stats={k: new_stats[k] for k in state.batch_stats},
             opt_state=new_opt)
         metrics = {"loss": loss.detach(),
-                   **metrics_fn(preds.detach(), batch, mesh)}
+                   **metrics_fn(preds.detach(), batch, mesh, bands)}
         return new_state, metrics
 
+    train_step.models = models
     return train_step
 
 
@@ -339,13 +385,20 @@ def make_train_step(raft_cfg: RaftConfig, train_cfg: RaftTrainConfig,
     {"loss", "epe"})``; inputs ``[B, H, W, C]`` and ``[B, H, W, 2]``
     (tensors or numpy), moved to the state's device. With a mesh (a
     ``parallel.make_mesh`` over the ranks, each calling the step with the
-    whole batch), the batch is split over its ``data`` axis."""
+    whole batch), the batch is split over its ``data`` axis and the image
+    height over its ``model`` axis (H a multiple of 8, at least 8 rows a
+    band)."""
 
-    def loss_fn(preds, batch, mesh_):
-        return _sequence_loss(preds, batch[2], train_cfg.gamma, mesh_)
+    def _gt(batch, bands):
+        return batch[2] if bands is None else bands.band(batch[2])
 
-    def metrics_fn(preds, batch, mesh_):
-        return {"epe": _mean_norm(preds[-1] - batch[2], mesh_)}
+    def loss_fn(preds, batch, mesh_, bands):
+        return _sequence_loss(preds, _gt(batch, bands), train_cfg.gamma,
+                              mesh_, bands)
+
+    def metrics_fn(preds, batch, mesh_, bands):
+        return {"epe": _mean_norm(preds[-1] - _gt(batch, bands), mesh_,
+                                  bands)}
 
     return _make_step(raft_cfg, train_cfg, mesh, loss_fn, metrics_fn)
 
@@ -358,40 +411,82 @@ def make_unsup_train_step(raft_cfg: RaftConfig, train_cfg: RaftTrainConfig,
     :func:`make_train_step`; reports the photometric loss and the mean
     |flow| of the final iteration."""
 
-    def loss_fn(preds, batch, mesh_):
+    def loss_fn(preds, batch, mesh_, bands):
         return _photometric_loss(preds, batch[0], batch[1], train_cfg.gamma,
-                                 smooth_weight, mesh_)
+                                 smooth_weight, mesh_, bands)
 
-    def metrics_fn(preds, batch, mesh_):
-        return {"mean_flow": _mean_norm(preds[-1], mesh_)}
+    def metrics_fn(preds, batch, mesh_, bands):
+        return {"mean_flow": _mean_norm(preds[-1], mesh_, bands)}
 
     return _make_step(raft_cfg, train_cfg, mesh, loss_fn, metrics_fn)
 
 
 def data_parallel_case(mesh, raft_cfg: RaftConfig, train_cfg: RaftTrainConfig,
-                       state: TrainState, ref, cur, gt_flow,
-                       checkpoint_dir=None) -> dict:
-    """One data-parallel supervised step on this rank, the body of a case
-    of ``parallel/multihost_ba.py::run_cases``: the state and the whole
-    batch go to the mesh's device (this rank's card, or the CPU). Returns
-    the new state (its fields as a dict of CPU tensors, which the spawn
-    helper returns as numpy), the loss and EPE, and the all-reduce calls
-    and bytes of the step (``comm_stats``). With ``checkpoint_dir``, the
+                       state: TrainState, ref, cur, gt_flow=None,
+                       checkpoint_dir=None, shape=None,
+                       time_steps: int = 0) -> dict:
+    """One supervised step (without ``gt_flow``, the photometric one) on
+    this rank of a mesh, the body of a case of
+    ``parallel/multihost_ba.py::run_cases``: the state and the whole batch
+    go to the mesh's device (this rank's card, or the CPU). ``shape``
+    (``{axis: size}``, such as ``{"data": 1, "model": 2}``) makes the
+    case's own mesh over the same ranks first; every rank runs the case,
+    so the mesh is made by all of them.
+
+    Returns the new state (its fields as a dict of CPU tensors, which the
+    spawn helper returns as numpy), the step's metrics (``loss`` and
+    ``epe`` or ``mean_flow``), the calls and bytes of each collective of
+    the step by operation (``comm``, from ``comm_stats``), with a ``model``
+    axis the model's ``band_rows`` (this rank's first row and rows, and the
+    rows of its first encoder activation and of ``fmap0``), and on a card
+    the step's peak memory (``peak_bytes``). With ``time_steps``, that many
+    more steps from the new state follow, each timed on the host clock
+    with the device synchronised: ``step_ms`` is their median, the first
+    left out. With ``checkpoint_dir``, the
     new state is also saved there through the mesh's ``CheckpointManager``
     (rank 0 writes) and restored on every rank: ``saved`` and
     ``restored_equal`` say how that went."""
-    from feature_tracker_tpu_torch.parallel.mesh import comm_stats
+    from feature_tracker_tpu_torch.parallel.mesh import comm_stats, make_mesh
     from feature_tracker_tpu_torch.train.checkpoint import CheckpointManager
 
-    step = make_train_step(raft_cfg, train_cfg, mesh)
-    state = state.to(torch.device(mesh.device_type))
-    before = comm_stats().get("all_reduce", {"calls": 0, "bytes": 0})
-    new_state, metrics = step(state, ref, cur, gt_flow)
-    after = comm_stats()["all_reduce"]
+    if shape is not None:
+        mesh = make_mesh(shape, device=mesh.device_type)
+    if gt_flow is None:
+        step = make_unsup_train_step(raft_cfg, train_cfg, mesh=mesh)
+        batch = (ref, cur)
+    else:
+        step = make_train_step(raft_cfg, train_cfg, mesh)
+        batch = (ref, cur, gt_flow)
+    dev = torch.device(mesh.device_type)
+    state = state.to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    before = comm_stats()
+    new_state, metrics = step(state, *batch)
+    after = comm_stats()
     out = {"state": dataclasses.asdict(new_state.to("cpu")),
-           "loss": float(metrics["loss"]), "epe": float(metrics["epe"]),
-           "all_reduce_calls": after["calls"] - before["calls"],
-           "all_reduce_bytes": after["bytes"] - before["bytes"]}
+           **{k: float(v) for k, v in metrics.items()},
+           "comm": {op: {k: n - before.get(op, {}).get(k, 0)
+                         for k, n in rec.items()}
+                    for op, rec in after.items()
+                    if rec != before.get(op)}}
+    if dev.type == "cuda":
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if model_size(mesh) > 1:
+        (model,) = step.models.values()
+        out["band_rows"] = dict(model.band_rows)
+    if time_steps:
+        times, later = [], new_state
+        for _ in range(time_steps):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            later, _ = step(later, *batch)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out["step_ms"] = 1e3 * statistics.median(times[1:])
     if checkpoint_dir is not None:
         manager = CheckpointManager(checkpoint_dir, mesh=mesh)
         out["saved"] = manager.save(int(new_state.step), new_state)

@@ -1163,22 +1163,28 @@ def test_raft_train_step_card_matches_cpu(card, kind):
                zip(on_card.leaves(), start.leaves()))
 
 
-def test_raft_training_with_low_memory_raises_on_the_card(card):
-    """The CUDA lookup kernel has no backward: training with
-    low_memory=True on the card raises instead of giving a zero gradient
-    through the correlation."""
+def test_raft_low_memory_train_step_card_matches_cpu(card):
+    """Training with low_memory=True on the card: the step takes the
+    plain, differentiable on-the-fly lookup (the CUDA kernel has no
+    backward, and the JAX trainers off a TPU take the same route), and
+    gives the CPU's step; the kernel is not launched."""
     import dataclasses
 
+    from chip_smoke import train_state_agree
+    from feature_tracker_tpu_torch.ops import cuda_raft_lookup
     from feature_tracker_tpu_torch.train import raft_train
 
     cfg = dataclasses.replace(TRAIN_TINY, low_memory=True)
-    ref, cur, gt = _flow_batch()
-    with pytest.raises(ValueError, match="low_memory"):
-        raft.Raft(cfg)(ref, cur, train=True)
     tcfg = raft_train.RaftTrainConfig()
-    state = raft_train.create_train_state(0, cfg, tcfg, None, device=card)
-    with pytest.raises(ValueError, match="low_memory"):
-        raft_train.make_train_step(cfg, tcfg)(state, ref, cur, gt)
+    start = raft_train.create_train_state(0, cfg, tcfg, None, device="cpu")
+    ref, cur, gt = _flow_batch()
+    step = raft_train.make_train_step(cfg, tcfg)
+    launches = cuda_raft_lookup.lookup_correlation_cuda.launches
+    got, got_m = step(start.to(card), ref, cur, gt)
+    want, want_m = step(start, ref, cur, gt)
+    assert cuda_raft_lookup.lookup_correlation_cuda.launches == launches
+    train_state_agree("low_memory supervised step", got, want, got_m,
+                      want_m)
 
 
 @pytest.mark.parametrize("name", ["superpoint", "disk", "lightglue"])

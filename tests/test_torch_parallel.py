@@ -2,7 +2,9 @@
 
 The JAX side runs on the 8 virtual CPU devices of tests/conftest.py; the
 port runs one gloo rank in this process (its own one-rank group), and two
-gloo ranks spawned once for the module (``two_ranks``). Tolerances:
+gloo ranks spawned once for the module (``two_ranks``), which also run the
+RAFT trainers on (1, 2) meshes (tests/test_torch_train_raft_sharded.py's
+rules) and the row-band collectives (tests/torch_rank_cases.py). Tolerances:
 statuses equal, uv within 1e-3 px (basic KLT) or 5e-3 px (warp
 trackers); the direct method at JAX's own sharded tolerances (uv atol 0.2,
 mean 0.05: a uniform shift is gauge-degenerate in that scene); the bundle
@@ -11,6 +13,7 @@ landmarks rtol 1e-3, atol 5e-3). A one-rank mesh gives the unsharded
 port's bits; features split over two ranks give the one-rank bits.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -57,7 +60,22 @@ from feature_tracker_tpu.train import raft_train as jrt
 from synthetic import translated_pair
 from test_parallel import _synthetic_ba
 from test_torch_train_raft import PTINY, TINY, assert_step_close, batch
+from test_torch_train_raft_sharded import (
+    RANK_THREADS,
+    assert_sharded_step,
+    band_problem,
+    one_rank_step,
+    sharded_case,
+    start_state,
+)
 from test_torch_train_raft_steps import jax_state
+from torch_rank_cases import (
+    BAND_CONVS,
+    band_conv,
+    collective_gradcheck_case,
+    conv_bands_case,
+    conv_input,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KLT_UV_TOL = {"BasicKlt": 1e-3, "AffineKlt": 5e-3, "LssdKlt": 5e-3}
@@ -128,8 +146,15 @@ BA_OPTS = jba.BaOptions(max_iterations=3, num_fixed_poses=2)
 LAUNCHER_BA = ba.BaOptions(max_iterations=10, num_fixed_poses=2)
 
 
-# The two-rank result of the data-parallel RAFT train step.
+# The two-rank result of the data-parallel RAFT train step, then the
+# steps on (1, 2) meshes (H, supervised), the low-memory one, the
+# convolutions on bands and the collectives' gradchecks.
 TRAIN_CASE = 1 + len(KLT_TRACKERS) + len(DirectMethodMode)
+MODEL2 = {"data": 1, "model": 2}
+SHARDED = [(32, True), (32, False), (40, True), (40, False)]
+LOW_MEMORY = dataclasses.replace(PTINY, low_memory=True)
+LOW_MEMORY_CASE = TRAIN_CASE + 1 + len(SHARDED)
+GRADCHECKS = [(op, rank) for op in ("halo", "gather") for rank in (0, 1)]
 
 
 @functools.lru_cache(maxsize=1)
@@ -144,7 +169,8 @@ def two_ranks(tmp_path_factory):
     """Every two-rank case, run once by two spawned gloo ranks: the
     features' slices, sharded KLT (each tracker and the global cap),
     sharded direct method (each mode), one data-parallel RAFT train step
-    (with a checkpoint through the mesh), sharded BA."""
+    (with a checkpoint through the mesh), the RAFT steps on (1, 2) meshes
+    (the first with a checkpoint), the row-band cases, sharded BA."""
     _, (rp, cp), uv = _klt_scene()
     _, (drp, dcp), k4, p_ref, duv = _direct_scene()
     cases = [(par.shard_features,
@@ -161,10 +187,17 @@ def two_ranks(tmp_path_factory):
         checkpoint_dir=str(tmp_path_factory.mktemp("ckpt"))),
         (PTINY, prt.RaftTrainConfig(), train_state_from_jax(js, device="cpu"),
          *batch4)))
+    cases += [sharded_case(MODEL2, h, sup, **({} if i else {
+        "checkpoint_dir": str(tmp_path_factory.mktemp("band_ckpt"))}))
+        for i, (h, sup) in enumerate(SHARDED)]
+    cases.append(sharded_case(MODEL2, 32, True, LOW_MEMORY))
+    cases.append((conv_bands_case, ()))
+    cases += [(collective_gradcheck_case, args) for args in GRADCHECKS]
     cases.append((ba_case, (_ba_problem(), ba_options_from_jax(BA_OPTS))))
     cases.append((ba_case, (scaling._make_problem(65536, 4, 8), LAUNCHER_BA)))
     store = tmp_path_factory.mktemp("gloo_store")
-    return spawn(run_cases, 2, str(store), "cpu", cases, device="cpu")
+    return spawn(run_cases, 2, str(store), "cpu", cases, device="cpu",
+                 threads=RANK_THREADS)
 
 
 # ------------------------------------------------------------------ mesh
@@ -414,7 +447,7 @@ def test_data_parallel_train_step_on_two_ranks(two_ranks):
     agree bit for bit. The all-reduces are the batch norms' statistics, the
     loss, the EPE and one flat gradient; the mesh's checkpoint is written
     once and restored on both ranks."""
-    from chip_smoke import expected_train_all_reduces
+    from chip_smoke import expected_train_comm
 
     js, (ref, cur, gt) = _train_problem()
     tcfg = jrt.RaftTrainConfig()
@@ -423,8 +456,9 @@ def test_data_parallel_train_step_on_two_ranks(two_ranks):
     jmesh = jax.sharding.Mesh(np.array(jax.devices()[:2]).reshape(2, 1),
                               ("data", "model"))
     js1, jm = jrt.make_train_step(TINY, tcfg, mesh=jmesh)(js, ref, cur, gt)
-    calls, nbytes = expected_train_all_reduces(
-        PTINY, sum(v.numel() for v in one.params.values()))
+    comm = expected_train_comm(PTINY, sum(v.numel() for v in
+                                          one.params.values()),
+                               ref.shape[:3], {"data": 2})
     results = [dict(r[TRAIN_CASE]) for r in two_ranks]
     for got in results:
         got["state"] = prt.TrainState(**_tensors(got["state"]))
@@ -433,12 +467,98 @@ def test_data_parallel_train_step_on_two_ranks(two_ranks):
             np.testing.assert_allclose(got[key], float(jm[key]), rtol=1e-5)
         assert_step_close(got["state"], one)
         assert_step_close(got["state"], js1)
-        assert (got["all_reduce_calls"], got["all_reduce_bytes"]) == (
-            calls, nbytes)
+        assert got["comm"] == {op: {"calls": c, "bytes": n}
+                               for op, (c, n) in comm.items()}
         assert got["restored_equal"]
     assert [r["saved"] for r in results] == [True, True]
     a, b = (r["state"] for r in results)
     assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+
+
+@pytest.mark.parametrize("i", range(len(SHARDED)), ids=[
+    f"H{h}-{'supervised' if sup else 'unsupervised'}" for h, sup in SHARDED])
+def test_height_sharded_step_on_two_ranks(i, two_ranks):
+    """A (1, 2) mesh splits the rows of the batch of 4 over 'model' (H=32:
+    16 + 16; H=40: 24 + 16): the port's one-rank step and JAX's step jitted
+    over the same mesh of two CPU devices. The first case also saves its
+    state through the mesh's checkpoint (rank 0 writes) and restores it on
+    both ranks."""
+    h, supervised = SHARDED[i]
+    js, _ = start_state()
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:2]).reshape(1, 2),
+                              ("data", "model"))
+    tcfg = jrt.RaftTrainConfig()
+    batch = band_problem(h)[:3 if supervised else 2]
+    if supervised:
+        step = jrt.make_train_step(TINY, tcfg, mesh=jmesh)
+    else:
+        step = jrt.make_unsup_train_step(TINY, tcfg, mesh=jmesh)
+    results = [r[TRAIN_CASE + 1 + i] for r in two_ranks]
+    assert_sharded_step(results, MODEL2, h, supervised,
+                        [one_rank_step(h, supervised), step(js, *batch)])
+    if i == 0:
+        assert [r["saved"] for r in results] == [True, True]
+        assert all(r["restored_equal"] for r in results)
+
+
+def test_low_memory_step_on_two_ranks(two_ranks):
+    """With ``low_memory`` each rank pools the gathered second feature map
+    and looks its band's rows up on the fly: the one-rank step (which
+    tests/test_torch_train_raft_steps.py holds to JAX)."""
+    assert_sharded_step([r[LOW_MEMORY_CASE] for r in two_ranks], MODEL2, 32,
+                        True, [one_rank_step(32, True, LOW_MEMORY)],
+                        LOW_MEMORY)
+
+
+@pytest.mark.parametrize("name", list(BAND_CONVS))
+def test_convolution_on_bands_is_the_whole_convolution(name, two_ranks):
+    """3x3, 7x7, (5, 1) and stride-2 convolutions on bands of 24 + 16 rows,
+    with their halo rows from the other rank, give the rows of the same
+    convolution of the whole image."""
+    got = [r[LOW_MEMORY_CASE + 1] for r in two_ranks]
+    assert [g["start"] for g in got] == [0, 24]
+    want = band_conv(name)(conv_input()).detach().numpy()
+    np.testing.assert_allclose(np.concatenate([g[name] for g in got], 1),
+                               want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("op", ["halo", "gather"])
+def test_row_band_collectives_pass_gradcheck_on_two_ranks(op, two_ranks):
+    """``torch.autograd.gradcheck`` in float64 of the halo exchange and the
+    band gather, each rank's band in turn the variable
+    (``torch_rank_cases.collective_gradcheck_case``)."""
+    for j, args in enumerate(GRADCHECKS):
+        if args[0] == op:
+            assert [r[LOW_MEMORY_CASE + 2 + j] for r in two_ranks] == [
+                True, True], args
+
+
+@pytest.mark.parametrize("op", ["halo", "gather"])
+def test_row_bands_on_a_one_rank_mesh(op, mesh):
+    """One band holds every row: the halo is the zero padding of a
+    convolution, the gather the input; both count one collective each way
+    (``halo`` / ``row_gather`` and their ``_backward``)."""
+    from feature_tracker_tpu_torch.parallel.height import RowBands
+
+    bands = RowBands(par.make_mesh({"data": 1, "model": 1}, device="cpu"),
+                     16)
+    assert (bands.start, bands.rows, bands.index) == (0, 16, 0)
+    x = torch.tensor(np.random.default_rng(4).normal(size=(2, 2, 3, 4)),
+                     requires_grad=True)
+    pmesh.reset_comm_stats()
+    if op == "halo":
+        y = bands.halo(x, 3)
+        want = torch.nn.functional.pad(x, (0, 0, 0, 0, 3, 3))
+    else:
+        y, want = bands.gather(x), x
+    assert torch.equal(y, want)
+    y.sum().backward()
+    assert torch.equal(x.grad, torch.ones_like(x))
+    name = "halo" if op == "halo" else "row_gather"
+    edges = 2 * 3 * 2 * 3 * 4 * 8 if op == "halo" else x.numel() * 8
+    assert pmesh.comm_stats() == {
+        name: {"calls": 1, "bytes": edges},
+        name + "_backward": {"calls": 1, "bytes": edges}}
 
 
 def test_launcher_problem_on_two_ranks_within_its_float32_floor(two_ranks):

@@ -395,10 +395,27 @@ def test_create_train_state_draws_flax_initializers(supervised):
                if k.endswith("running_var"))
 
 
-def test_a_mesh_with_a_model_axis_raises():
-    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
-                                 shape=(1, 2))
-    with pytest.raises(ValueError, match="8c"):
-        prt.make_train_step(PTINY, prt.RaftTrainConfig(), mesh)
-    with pytest.raises(ValueError, match="8c"):
-        prt.make_unsup_train_step(PTINY, prt.RaftTrainConfig(), mesh=mesh)
+def test_row_bands_refuse_a_height_they_cannot_split():
+    """A ``model`` axis splits H into 8-row units, at least one per rank:
+    H % 8 != 0 and H / 8 < model raise when the step is called (JAX would
+    split 16 rows over 4 devices; ROADMAP.md section 3), before any
+    collective. An axis that is neither 'data' nor 'model' still raises
+    when the step is made."""
+    tcfg = prt.RaftTrainConfig()
+    state = prt.create_train_state(0, PTINY, tcfg, None, device="cpu")
+    for shape, h in (((1, 2), 36), ((1, 4), 24), ((2, 3), 16)):
+        mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                     shape=shape)
+        ref, cur, gt = (np.zeros((2, h, 32, c), np.float32)
+                        for c in (1, 1, 2))
+        with pytest.raises(ValueError, match=f"H = {h} does not split"):
+            prt.make_train_step(PTINY, tcfg, mesh)(state, ref, cur, gt)
+        with pytest.raises(ValueError, match=f"H = {h} does not split"):
+            prt.make_unsup_train_step(PTINY, tcfg, mesh=mesh)(state, ref,
+                                                               cur)
+    other = types.SimpleNamespace(mesh_dim_names=("data", "space"),
+                                  shape=(1, 2))
+    with pytest.raises(ValueError, match="'space'"):
+        prt.make_train_step(PTINY, tcfg, other)
+    with pytest.raises(ValueError, match="'space'"):
+        prt.make_unsup_train_step(PTINY, tcfg, mesh=other)
