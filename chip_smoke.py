@@ -166,10 +166,28 @@ Phases (any failed check raises, so the exit code is non-zero):
      ``cotracker_pretrain.main`` with two or three steps per stage at full
      width into a temporary directory: JAX's files and ``metrics.json``
      keys, and every file under ``weights/`` as before.
+ 11. The demos (``feature_tracker_tpu_torch/demos/``, in ``run.sh``'s
+     order), each ``run`` on the card at the demo's own size with its PNGs
+     written into a temporary directory, the launch counts set to 0 just
+     before and read just after: kernels 1, 3 and 4 once per ``track``
+     call the demo made (``track_demo`` 11 each, ``stream_demo`` one per
+     tracked frame, ``slam_demo`` and ``cotracker_demo`` 5), no launch in
+     the other demos. Each is held to the same ``run`` on the CPU: KLT
+     statuses by phase 2's rule and uv within 1e-3 px (5e-3 px for the
+     affine and SE(2) trackers), the median tracked flow within 0.2 px of
+     the synthetic pair's (-3, +5), the direct poses within 1e-5 of the
+     CPU's and of the synthetic set's pure translation, Farnebäck by
+     interior statistics, BRIEF exactly, the learned detectors' keypoints
+     and matches per keypoint, the SLAM window BA by phase 8's rules with
+     the CPU's one-ulp spread, CoTracker within twice the card's one-ulp
+     spread, the stream against the CPU on the frames that came through
+     the ring; overlays differ in at most 0.1 % of their pixels. Every
+     file under ``demos/`` and ``weights/`` is hashed before and after,
+     and each demo's wall ms is printed with the card.
 Then one JSON line with the kernels of the paths (kernels 1, 3 and 4 also
 with their launches on the sharded paths, kernel 1 with those of phase
-10d), the card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``.
+10d, and with their launches in the demos), the card's name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and outside a checkout of the
 repository (the port and its kernel sources are imported from beside this
@@ -2029,15 +2047,18 @@ def parallel_paths(dev, card, rp, cp, uv, opts):
 
 
 # --------------------------------------------------------------- phase 9
-def weights_digest() -> dict:
-    """sha256 of every file under weights/."""
+def tree_digest(*dirs) -> dict:
+    """sha256 of every file under the repository's ``dirs``."""
     import hashlib
 
-    base = os.path.join(ROOT, "weights")
     out = {}
-    for name in sorted(os.listdir(base)):
-        with open(os.path.join(base, name), "rb") as fh:
-            out[name] = hashlib.sha256(fh.read()).hexdigest()
+    for top in dirs:
+        for base, _, names in os.walk(os.path.join(ROOT, top)):
+            for name in names:
+                path = os.path.join(base, name)
+                with open(path, "rb") as fh:
+                    out[os.path.relpath(path, ROOT)] = hashlib.sha256(
+                        fh.read()).hexdigest()
     return out
 
 
@@ -2676,7 +2697,7 @@ def train_paths(dev, card, weights_before):
         check(sorted(os.listdir(tmp)) == ["metrics.json", "raft.npz"],
               f"9f wrote {sorted(os.listdir(tmp))}")
         load_raft_npz(os.path.join(tmp, "raft.npz"), cfg)
-    check(weights_digest() == weights_before,
+    check(tree_digest("weights") == weights_before,
           "a file under weights/ changed during the run")
     print("[train] 9f weights/ unchanged: every file's sha256 as before the "
           "run")
@@ -3102,13 +3123,428 @@ def pretrain_paths(dev, card, weights_before):
                            LightGlueConfig(descriptor_dim=128))
         load_cotracker_npz(os.path.join(tmp, "cotracker.npz"), ccfg)
         check(np.isfinite(agg["epe"]), "10f: CoTracker's held-out EPE")
-    check(weights_digest() == weights_before,
+    check(tree_digest("weights") == weights_before,
           "a file under weights/ changed during the run")
     print("[train] 10f both mains wrote JAX's files and metrics.json keys "
           "into a temporary directory; weights/ unchanged: every file's "
           "sha256 as before the run")
     stage_done("10f (pretrain.main, cotracker_pretrain.main)", t_phase)
     return launches
+
+
+# -------------------------------------------------------------- phase 11
+# The port's demos, in feature_tracker_tpu_torch/demos/run.sh's order.
+DEMOS = ("raft_demo", "track_demo", "dense_flow_demo", "direct_method_demo",
+         "match_brief_demo", "match_superpoint_demo", "match_disk_demo",
+         "nn_matcher_demo", "stream_demo", "slam_demo", "cotracker_demo")
+# The synthetic pair's true flow (dx, dy), away from the wrapped border;
+# the KLT solver stops once a step is under sqrt(4e-2) = 0.2 px.
+DEMO_FLOW, DEMO_FLOW_TOL = (-3.0, 5.0), 0.2
+DEMO_WARP_UV_TOL = 5e-3         # px, the affine and SE(2) trackers
+DEMO_PNG_SHARE = 1e-3           # overlay pixels that may differ
+
+
+def statuses_agree(label, got, want):
+    """Phase 2's status rule: at most 0.1 % differ (at least 1 may)."""
+    bad = int((np.asarray(got) != np.asarray(want)).sum())
+    check(bad <= max(1, int(KLT_STATUS_SHARE * np.size(got))),
+          f"{label}: {bad} statuses differ")
+    return bad
+
+
+def tracked_uv_err(label, got_uv, got_st, want_uv, want_st, tol):
+    both = (np.asarray(got_st) == 1) & (np.asarray(want_st) == 1)
+    check(both.any(), f"{label}: no feature tracked on both sides")
+    err = float(np.abs(np.asarray(got_uv)[both]
+                       - np.asarray(want_uv)[both]).max())
+    check(err <= tol, f"{label}: uv {err} px apart (limit {tol})")
+    return err
+
+
+def overlays_agree(label, got, want, exact=False):
+    """The share of overlay pixels that differ between the card's and the
+    CPU's PNGs of one demo; zero where the numbers are equal."""
+    shares = []
+    for name in sorted(want):
+        a, b = got[name], want[name]
+        check(a.shape == b.shape, f"{label}: {name} shapes differ")
+        shares.append(float((a != b).any(axis=-1).mean()))
+    limit = 0.0 if exact else DEMO_PNG_SHARE
+    check(max(shares, default=0.0) <= limit,
+          f"{label}: overlays differ in {shares} of their pixels")
+    return max(shares, default=0.0)
+
+
+def hold_track(c, p, synthetic):
+    check(c["num"] == p["num"] and np.array_equal(c["uv"], p["uv"]),
+          "track_demo: detections differ from the CPU's")
+    parts = []
+    for name in ("basic", "affine", "lssd"):
+        tol = UV_TOL if name == "basic" else DEMO_WARP_UV_TOL
+        bad = statuses_agree(f"track_demo {name}", c[name]["status"],
+                             p[name]["status"])
+        err = tracked_uv_err(f"track_demo {name}", c[name]["uv"],
+                             c[name]["status"], p[name]["uv"],
+                             p[name]["status"], tol)
+        ok = c[name]["status"] == 1
+        flow = np.median(c[name]["uv"][ok] - c["uv"][ok], axis=0)
+        check(not synthetic or np.abs(flow - DEMO_FLOW).max()
+              <= DEMO_FLOW_TOL, f"track_demo {name}: median flow {flow}")
+        parts.append(f"{name} {c[name]['tracked']}/{c['num']} tracked, "
+                     f"{bad} statuses and {err:.3g} px from the CPU, median "
+                     f"flow ({flow[0]:.4f}, {flow[1]:.4f}), "
+                     f"{c[name]['ms']:.4f} ms/call steady state")
+    return "; ".join(parts)
+
+
+def stream_replay(left, cur_frames, delivered, device):
+    """stream_demo's loop on the frames that came through the ring, their
+    pyramids built by build_pyramid (the ring's convert + pyramid gives the
+    same, phase 6d): the per-frame uv and statuses."""
+    from feature_tracker_tpu_torch.core.config import (
+        HarrisOptions,
+        KltOptions,
+    )
+    from feature_tracker_tpu_torch.core.status import TrackStatus
+    from feature_tracker_tpu_torch.demos import stream_demo
+    from feature_tracker_tpu_torch.ops.detect import detect_good_features
+    from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
+    from feature_tracker_tpu_torch.trackers.klt import BasicKlt
+
+    cap = stream_demo.MAX_FEATURES
+    frames = [np.clip(f, 0, 255).astype(np.uint8)
+              for f in [left] + list(cur_frames)]
+    pyrs = [build_pyramid(frames[i], stream_demo.LEVELS, device=device)
+            for i in delivered]
+    uv, num = detect_good_features(pyrs[0][0], cap, HarrisOptions(
+        min_feature_distance=25, min_valid_response=40.0), device=device)
+    status = torch.where(torch.arange(cap, device=device) < num,
+                         int(TrackStatus.NOT_TRACKED),
+                         int(TrackStatus.OUTSIDE)).to(torch.int8)
+    tracker = BasicKlt(KltOptions(max_track_points=cap), device=device)
+    out = []
+    for k in range(1, len(pyrs)):
+        uv, status = tracker.track(pyrs[k - 1], pyrs[k], uv, uv, status)
+        out.append((uv.cpu().numpy(), status.cpu().numpy()))
+        status = torch.where(status == int(TrackStatus.TRACKED),
+                             int(TrackStatus.NOT_TRACKED),
+                             status).to(torch.int8)
+    return out
+
+
+def hold_direct(c, p, baseline, synthetic):
+    err = max(float(np.abs(np.asarray(c[k]) - np.asarray(p[k])).max())
+              for k in ("q_rc", "p_rc"))
+    check(err <= DIRECT_POSE_TOL, f"direct_method_demo: poses {err} apart")
+    truth = np.array([[-2 * (k + 1) * baseline / 64.0, 0, 0]
+                      for k in range(len(c["p_rc"]))])
+    terr = float(np.abs(np.asarray(c["p_rc"]) - truth).max())
+    check(not synthetic or terr <= DIRECT_POSE_TOL, f"direct_method_demo: "
+          f"p_rc {terr} from the synthetic set's translation")
+    bad = statuses_agree("direct_method_demo", c["status"], p["status"])
+    uv_err = tracked_uv_err("direct_method_demo", c["cur_uv"], c["status"],
+                            p["cur_uv"], p["status"], DIRECT_UV_TOL)
+    return (f"poses {err:.3g} from the CPU and {terr:.3g} from the true "
+            f"translation (p_x of frame 5 {c['p_rc'][-1][0]:.7f}), "
+            f"{bad} statuses and {uv_err:.3g} px from the CPU, tracked "
+            f"{c['tracked']}")
+
+
+def hold_dense(c, p, synthetic):
+    """Phase 6c's interior statistics; on the synthetic pair over the
+    pixels whose flow follows the true one (within 1 px; the flow
+    diverges by the wrapped border), and the 99th percentile and a mean
+    within DENSE_FAR over the whole interior."""
+    m = DENSE_MARGIN
+    truth = np.array([DEMO_FLOW[1], DEMO_FLOW[0]])[:, None, None]
+    inner = c["flow"][:, m:-m, m:-m]
+    follows = ((np.abs(inner - truth) < 1.0).all(axis=0) if synthetic
+               else np.ones(inner.shape[1:], bool))
+    d = np.abs(inner - p["flow"][:, m:-m, m:-m])
+    df = d[:, follows]
+    check(follows.mean() >= 0.98 and df.mean() <= DENSE_MEAN
+          and np.percentile(df, 99) <= DENSE_P99
+          and np.percentile(d, 99) <= DENSE_P99 and d.mean() <= DENSE_FAR,
+          "dense_flow_demo: card vs CPU beyond the statistics' limits")
+    return (f"interior pixels following the true flow {follows.mean():.4f}: "
+            f"mean |d| {df.mean():.3g} px, p99 {np.percentile(df, 99):.3g}; "
+            f"whole interior mean {d.mean():.3g}, p99 "
+            f"{np.percentile(d, 99):.3g}, max {d.max():.3g}; "
+            f"{c['ms']:.4f} ms/frame steady state")
+
+
+def hold_equal(label, c, p, keys):
+    for key in keys:
+        check(np.array_equal(np.asarray(c[key]), np.asarray(p[key])),
+              f"{label}: {key} differs from the CPU's")
+    return f"{c['tracked']}/{c['n_ref']} matched, as on the CPU"
+
+
+def hold_matches(label, c, p):
+    """A learned detector's keypoints and their matches against the CPU's:
+    the same counts and keypoints, whose order may differ where two
+    scores lie closer than the heatmaps' float32 difference (~2e-6); per
+    keypoint, by position, the same status (phase 2's share rule) and,
+    where both matched, the same matched position."""
+    check((c["n_ref"], c["n_cur"]) == (p["n_ref"], p["n_cur"]),
+          f"{label}: counts differ from the CPU's")
+    n = c["n_ref"]
+    row = {tuple(x): i for i, x in enumerate(p["ref_uv"][:n])}
+    order = [row.get(tuple(x), -1) for x in c["ref_uv"][:n]]
+    cur_same = ({tuple(x) for x in c.get("cur_uv", [])}
+                == {tuple(x) for x in p.get("cur_uv", [])})
+    check(sorted(order) == list(range(n)) and cur_same,
+          f"{label}: keypoints differ from the CPU's")
+    order = np.array(order)
+    st_c, st_p = c["status"][:n], p["status"][order]
+    bad = statuses_agree(label, st_c, st_p)
+    both = (st_c == 1) & (st_p == 1)
+    check(np.array_equal(c["matched_uv"][:n][both],
+                         p["matched_uv"][order][both]),
+          f"{label}: matched positions differ from the CPU's")
+    moved = int((order != np.arange(n)).sum())
+    return (f"{c['tracked']}/{n} matched (CPU {p['tracked']}); {moved} "
+            f"keypoints in another order, {bad} statuses differ")
+
+
+def hold_slam(c, p, disparity, baseline, synthetic):
+    import dataclasses as dc
+
+    from feature_tracker_tpu_torch.demos import slam_demo
+
+    bad = 0
+    for g, w in zip(c["results"], p["results"]):
+        check(g.num_live == w.num_live
+              and np.array_equal(g.track_ids, w.track_ids),
+              f"slam_demo frame {g.frame_id}: live tracks or ids differ")
+        bad = max(bad, statuses_agree(f"slam_demo frame {g.frame_id}",
+                                      g.status, w.status))
+        tracked_uv_err(f"slam_demo frame {g.frame_id}", g.uv, g.status,
+                       w.uv, w.status, UV_TOL)
+    check((c["landmarks"], c["n_obs"]) == (p["landmarks"], p["n_obs"]),
+          "slam_demo: the window differs from the CPU's")
+    # The CPU's own spread: its window with every observation one ulp on.
+    nudged = [dc.replace(r, uv=np.nextafter(r.uv, np.float32(np.inf)))
+              for r in p["results"]]
+    window = slam_demo.landmark_window(nudged, disparity, "cpu")[0]
+    spread = float(np.abs(np.asarray(window.optimize()) / p["rms"]
+                          - 1).max())
+    ba_agree("slam_demo window BA card vs CPU", [*c["window"], c["rms"]],
+             [*p["window"], p["rms"]], BA_RMS_CPU, spread)
+    derr = float(np.abs(c["cam_direct"] - p["cam_direct"]).max())
+    truth = np.array([[-2 * k * baseline / 64.0, 0, 0]
+                      for k in range(len(c["cam_direct"]))])
+    terr = float(np.abs(c["cam_direct"] - truth).max())
+    berr = float(np.abs(c["cam_ba"] - truth).max())
+    check(derr <= DIRECT_POSE_TOL and (not synthetic or (
+        terr <= DIRECT_POSE_TOL and berr <= SLAM_POS_TOL)),
+          f"slam_demo: direct {derr} from the CPU and {terr} from the "
+          f"truth, BA {berr} from the truth")
+    return (f"{bad} statuses differ at most per frame; {c['landmarks']} "
+            f"landmarks, {c['n_obs']} observations, rms "
+            f"{c['rms'][0]:.4f} -> {c['rms'][-1]:.6f} px; camera positions: "
+            f"direct {derr:.3g} from the CPU and {terr:.3g} from the true "
+            f"translation, BA {berr:.3g} m from it; optimize() "
+            f"{c['optimize_ms']:.1f} ms")
+
+
+def hold_cotracker(c, p, video, clip, dev):
+    from feature_tracker_tpu_torch.demos import cotracker_demo
+    from feature_tracker_tpu_torch.models.cotracker import CoTracker
+    from feature_tracker_tpu_torch.utils.weights import (
+        load_cotracker_npz,
+        shipped_cotracker_config,
+        weights_path,
+    )
+
+    check(np.array_equal(c["uv0"], p["uv0"]),
+          "cotracker_demo: queries differ from the CPU's")
+    cfg = shipped_cotracker_config()
+    model = CoTracker(cfg, device=dev)
+    model.load_state_dict(load_cotracker_npz(weights_path("cotracker.npz"),
+                                             cfg))
+    crop = cotracker_demo.CROP
+    small = video.reshape(-1, crop // 2, 2, crop // 2, 2).mean((2, 4))
+    parts = []
+    for label, vid, q, got, want in (
+            ("crop", small[..., None], c["uv0"] * 0.5,
+             (c["tracks"] / 2.0, c["vis"]), (p["tracks"] / 2.0, p["vis"])),
+            ("synthetic", clip[0], clip[1],
+             (c["synthetic"]["tracks"], c["synthetic"]["vis"]),
+             (p["synthetic"]["tracks"], p["synthetic"]["vis"]))):
+        vid = torch.as_tensor(np.asarray(vid, np.float32), device=dev)
+        q = torch.as_tensor(np.asarray(q, np.float32), device=dev)
+        t1, v1 = model(vid, q)
+        t2, v2 = model(torch.nextafter(vid, torch.full_like(vid, np.inf)), q)
+        spread = (float((t1 - t2).abs().max()), float((v1 - v2).abs().max()))
+        whole = (float(np.abs(got[0] - want[0]).max()),
+                 float(np.abs(got[1] - want[1]).max()))
+        check(whole[0] <= max(COT_TRACK_TOL, 2 * spread[0])
+              and whole[1] <= max(COT_VIS_TOL, 2 * spread[1]),
+              f"cotracker_demo {label}: {whole} from the CPU, the card's "
+              f"own spread {spread}")
+        parts.append(f"{label} {whole[0]:.3g} px / {whole[1]:.3g} from the "
+                     f"CPU (card's one-ulp spread {spread[0]:.3g} / "
+                     f"{spread[1]:.3g})")
+    bad = statuses_agree("cotracker_demo KLT chain", c["klt_status"],
+                         p["klt_status"])
+    err = tracked_uv_err("cotracker_demo KLT chain", c["klt_tracks"][-1],
+                         c["klt_status"], p["klt_tracks"][-1],
+                         p["klt_status"], UV_TOL)
+    parts.append(f"KLT chain {bad} statuses and {err:.3g} px from the CPU; "
+                 f"synthetic EPE {c['synthetic']['epe']:.4f} px (zero motion "
+                 f"{c['synthetic']['zero_epe']:.4f})")
+    return "; ".join(parts)
+
+
+def demo_paths(dev, card):
+    """Phase 11: every port demo's ``run`` on the card at the demo's own
+    size, its PNGs into a temporary directory, each held to the same
+    ``run`` on the CPU (where a demo times ``iters`` steady-state calls,
+    the CPU makes one: the results are the last call's either way), the
+    launches of the KLT kernels counted against the ``track`` calls the
+    demo made, and ``demos/output/`` and ``weights/`` hashed before and
+    after. Returns the launches of each kernel over the demos."""
+    import importlib
+    import tempfile
+
+    from feature_tracker_tpu_torch.demos import (
+        _common,
+        cotracker_demo,
+        direct_method_demo,
+        raft_demo,
+    )
+    from feature_tracker_tpu_torch.ops import (
+        cuda_klt,
+        cuda_raft_lookup,
+        cuda_warp_klt,
+    )
+
+    t_phase = time.perf_counter()
+    baseline = direct_method_demo.BASELINE
+    before = tree_digest("demos", "weights")
+    counters = {"klt_fast_pyramid": cuda_klt.track_pyramid_fast_cuda,
+                "klt_iter_pyramid": cuda_klt.track_pyramid_iter_cuda,
+                "klt_affine_pyramid": cuda_warp_klt.affine_track_pyramid_cuda,
+                "klt_lssd_pyramid": cuda_warp_klt.lssd_track_pyramid_cuda,
+                "raft_lookup": cuda_raft_lookup.lookup_correlation_cuda}
+    ref, cur, source = _common.load_optical_flow_pair()
+    left, disp, curs, source2 = _common.load_direct_method_set()
+    video = cotracker_demo.load_video(left, curs)
+    clip = cotracker_demo.synthetic_clip()
+    inputs = {"raft_demo": raft_demo.inputs(),
+              "track_demo": (ref, cur, source),
+              "dense_flow_demo": (ref, cur, source),
+              "direct_method_demo": (left, disp, curs, source2),
+              "match_brief_demo": (ref, cur, source),
+              "match_superpoint_demo": (ref, cur, source),
+              "match_disk_demo": (ref, cur, source),
+              "nn_matcher_demo": (ref, cur, source),
+              "stream_demo": (left, curs, source2),
+              "slam_demo": (left, disp, curs, source2),
+              "cotracker_demo": (video, clip, source2)}
+    fast_only = ("stream_demo", "slam_demo", "cotracker_demo")
+    # The synthetic sets' truth is held too, where the demos run on them.
+    synthetic = source == source2 == "synthetic"
+    totals = dict.fromkeys(counters, 0)
+    print(f"[demo] inputs: {source} 752x480 pair, {source2} "
+          f"{left.shape[1]}x{left.shape[0]} set; card {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for demo in DEMOS:
+            module = importlib.import_module(
+                f"feature_tracker_tpu_torch.demos.{demo}")
+            args = inputs[demo]
+            out_dir = os.path.join(tmp, demo)
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = module.run(*args, device=dev, out_dir=out_dir)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: fn.launches for k, fn in counters.items()}
+            t0 = time.perf_counter()
+            kw = {"iters": 1} if demo in ("raft_demo", "track_demo",
+                                          "dense_flow_demo") else {}
+            p = module.run(*args, device="cpu", **kw)
+            cpu_s = time.perf_counter() - t0
+
+            calls = c.get("track_calls", 0)
+            want = dict.fromkeys(counters, 0)
+            if demo == "track_demo":
+                for k in ("klt_fast_pyramid", "klt_affine_pyramid",
+                          "klt_lssd_pyramid"):
+                    want[k] = calls
+            elif demo in fast_only:
+                want["klt_fast_pyramid"] = calls
+            check(launches == want, f"{demo}: launches {launches}, "
+                  f"expected {want} for {calls} track calls")
+            for k, n in launches.items():
+                totals[k] += n
+            pngs = c.get("png", {})
+            written = sorted(os.listdir(out_dir)) if pngs else []
+            check(written == sorted(pngs),
+                  f"{demo}: wrote {written}, returned {sorted(pngs)}")
+
+            if demo == "raft_demo":
+                flow_err = float(np.abs(c["flow"] - p["flow"]).max())
+                check(c["shapes"] == p["shapes"] == [(5, 64, 64, 2)] * 5
+                      and flow_err <= RAFT_CPU_TOL
+                      and abs(c["epe"] - p["epe"]) <= 1e-4,
+                      f"raft_demo: shapes {c['shapes']}, flow {flow_err} "
+                      f"px and EPE {c['epe']} vs {p['epe']}")
+                note = (f"shapes {c['shapes'][0]} x {len(c['shapes'])}; "
+                        f"EPE {c['epe']:.6f} px (CPU {p['epe']:.6f}, zero "
+                        f"flow {c['zero_epe']:.4f}), flow {flow_err:.3g} px "
+                        f"from the CPU; {c['ms']:.4f} ms/call steady state")
+            elif demo == "track_demo":
+                note = hold_track(c, p, synthetic)
+            elif demo == "dense_flow_demo":
+                note = hold_dense(c, p, synthetic)
+            elif demo == "direct_method_demo":
+                note = hold_direct(c, p, baseline, synthetic)
+            elif demo == "match_brief_demo":
+                note = hold_equal(demo, c, p, (
+                    "ref_uv", "cur_uv", "ref_bits", "cur_bits", "idx",
+                    "matched_uv", "status"))
+            elif demo in ("match_superpoint_demo", "match_disk_demo"):
+                note = hold_matches(demo, c, p)
+            elif demo == "nn_matcher_demo":
+                note = "; ".join(
+                    f"{key}: " + hold_matches(f"{demo} {key}", c[key],
+                                              p[key])
+                    for key in ("superpoint", "disk"))
+            elif demo == "stream_demo":
+                replay = stream_replay(left, curs, c["frames"], "cpu")
+                bad = 0
+                for k, (uv, st) in enumerate(replay):
+                    bad = max(bad, statuses_agree(
+                        f"stream_demo frame {k + 1}", c["status"][k], st))
+                    tracked_uv_err(f"stream_demo frame {k + 1}",
+                                   c["uv"][k], c["status"][k], uv, st,
+                                   UV_TOL)
+                note = (f"frames {c['frames']} through the ring "
+                        f"({c['dropped']} dropped), tracked {c['tracked']}, "
+                        f"{bad} statuses differ at most per frame from the "
+                        f"CPU on the same frames; ms per frame "
+                        f"{[round(x, 3) for x in c['ms']]}")
+            elif demo == "slam_demo":
+                note = hold_slam(c, p, disp, baseline, synthetic)
+            else:
+                note = hold_cotracker(c, p, video, clip, dev)
+            share = overlays_agree(demo, pngs, p.get("png", {}),
+                                   exact=demo == "match_brief_demo")
+            print(f"[demo] {demo}: {wall_ms:.1f} ms wall on the card "
+                  f"(first run in this process), CPU run {cpu_s:.1f} s; "
+                  f"launches {dict((k, n) for k, n in launches.items() if n)}"
+                  f" for {calls} track calls; PNGs {sorted(pngs)} differ "
+                  f"from the CPU's in {share:.3g} of their pixels; {note}; "
+                  f"card {card}")
+    after = tree_digest("demos", "weights")
+    check(after == before, "phase 11 changed files under demos/ or weights/: "
+          f"{sorted(set(after.items()) ^ set(before.items()))}")
+    stage_done("11 (demos)", t_phase)
+    return totals
 
 
 def main() -> int:
@@ -3150,7 +3586,7 @@ def main() -> int:
         lssd_track_pyramid_reference,
     )
 
-    weights_before = weights_digest()
+    weights_before = tree_digest("weights")
     dev = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -3533,6 +3969,10 @@ def main() -> int:
     train_paths(dev, card, weights_before)
     kernels[0]["pretrain_launches"] = pretrain_paths(dev, card,
                                                      weights_before)
+    demo_launches = demo_paths(dev, card)
+    for k in kernels:
+        if demo_launches[k["name"]]:
+            k["demo_launches"] = demo_launches[k["name"]]
     for k in kernels:
         if k["name"] in sharded:
             k["sharded_launches"] = sharded[k["name"]]
