@@ -184,10 +184,28 @@ Phases (any failed check raises, so the exit code is non-zero):
      the ring; overlays differ in at most 0.1 % of their pixels. Every
      file under ``demos/`` and ``weights/`` is hashed before and after,
      and each demo's wall ms is printed with the card.
+ 12. The timing and evaluation scripts (``feature_tracker_tpu_torch/
+     scripts/``) at the JAX scripts' sizes, the launch counts set to 0
+     before each call and read after it: ``raft_bf16_eval`` ``accuracy``
+     and ``anytime`` (16 pairs of 64x64, the shipped compact weights; no
+     kernel) held to the same functions on the CPU (float32 EPE within
+     1e-3 px, bfloat16 within 0.05 px of float32), ``speed`` and
+     ``speed_sidecar`` at 1x440x1024 (kernel 5 once per iteration: 1 or 12
+     launches a call, 12 / 6 / 12 in the sidecar), ``split`` at 55x128
+     (12 launches a lookup loop, the loop held to the same loop on the
+     plain lookup); ``time_klt_modes`` fast / direct / inverse at N=10240
+     (one launch of kernel 1 or 2 a call, ``tracked`` against the plain
+     path by phase 2's rule); ``klt_multipair`` at K = 1, 2, 4 (one launch
+     a composite call, K a sequential one; the composite held to the
+     sequential calls on the features its parity rule covers and to the
+     native CPU port by phase 2's rule; times by events, and device
+     times with the host's enqueue hidden behind a stream sleep). Every
+     file under ``weights/`` is hashed before and after.
 Then one JSON line with the kernels of the paths (kernels 1, 3 and 4 also
 with their launches on the sharded paths, kernel 1 with those of phase
-10d, and with their launches in the demos), the card's name and power
-limit, and as the last line ``{"ok": true, "device": {...}}``.
+10d, and with their launches in the demos; kernels 1, 2 and 5 with their
+launches in phase 12's scripts), the card's name and power limit, and as
+the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and outside a checkout of the
 repository (the port and its kernel sources are imported from beside this
@@ -688,6 +706,28 @@ def device_ms(fn, kernel: str, events_ms: float, calls: int = 20) -> float:
               "reported none); the CUDA events' time stands in")
         return events_ms
     return sum(e.self_device_time_total for e in rows) / launches / 1e3
+
+
+def queued_ms(fn, repeats: int = 20, sleep_cycles: int = 40_000_000):
+    """Median device time in ms of one ``fn()`` call with the host's
+    enqueue hidden: the stream first spins for ``sleep_cycles`` SM clocks
+    (``torch.cuda._sleep``, ~20 ms), long enough for the host to enqueue the
+    start event, the call and the end event behind it, so the events time
+    the call's kernels back to back. torch.profiler has lost the kernel
+    records of such one-launch calls late in this script."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def lookup_inputs(dev, seed, b, h, w, c, levels, spread=None):
@@ -3547,6 +3587,225 @@ def demo_paths(dev, card):
     return totals
 
 
+# -------------------------------------------------------------- phase 12
+# The port's timing and evaluation scripts (feature_tracker_tpu_torch/
+# scripts/) at the JAX scripts' own sizes. Float32 EPEs on the card are
+# held to the CPU's within SCRIPT_EPE_TOL (TF32 off in Raft.forward); the
+# bfloat16 EPE to the float32 one within SCRIPT_BF16_EPE (JAX's own gap on
+# the CPU is 0.0054 px on one batch of these pairs). The lookup loop of ``split`` on the kernel is held to the same loop
+# on the plain lookup within SPLIT_LOCS_RTOL (the carry adds 1e-6 * the
+# mean correlation, which the two lookups give to ~1e-6 relative).
+# klt_multipair: the composite tracks a feature exactly as its pair alone
+# where it lies at least ``parity_margin`` rows inside its crop; there
+# statuses must be equal and uv within the solver's stop step
+# (DEMO_FLOW_TOL, 0.2 px: the band offset rounds the rows by up to an ulp).
+SCRIPT_EPE_TOL, SCRIPT_BF16_EPE = 1e-3, 0.05
+SPLIT_LOCS_RTOL = 1e-6
+MULTIPAIR_KS = (1, 2, 4)
+
+
+def script_paths(dev, card):
+    """Phase 12: every mode of the port's scripts on the card at the JAX
+    scripts' sizes, each held to the CPU or to the kernel's plain version,
+    the launches of kernels 1, 2 and 5 counted per call, and ``weights/``
+    hashed before and after. Returns each kernel's launches over the
+    phase's script calls (the comparisons' own launches not counted)."""
+    from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
+    from feature_tracker_tpu_torch.models.layers import flax_init_
+    from feature_tracker_tpu_torch.models.raft import (
+        Raft,
+        RaftConfig,
+        UpdateBlock,
+        lookup_correlation_otf,
+    )
+    from feature_tracker_tpu_torch.ops import cuda_klt, cuda_raft_lookup
+    from feature_tracker_tpu_torch.scripts import (
+        klt_multipair,
+        raft_bf16_eval,
+        time_klt_modes,
+    )
+    from feature_tracker_tpu_torch.trackers.klt import basic
+
+    t_phase = time.perf_counter()
+    before = tree_digest("weights")
+    counters = {"klt_fast_pyramid": cuda_klt.track_pyramid_fast_cuda,
+                "klt_iter_pyramid": cuda_klt.track_pyramid_iter_cuda,
+                "raft_lookup": cuda_raft_lookup.lookup_correlation_cuda}
+    totals = dict.fromkeys(counters, 0)
+
+    def counted(fn, *args, **kw):
+        for c in counters.values():
+            c.launches = 0
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        for k, c in counters.items():
+            totals[k] += c.launches
+        return out
+
+    # 12a. accuracy and anytime: the all-pairs route, no kernel.
+    acc = counted(raft_bf16_eval.accuracy, device=dev)
+    acc_cpu = raft_bf16_eval.accuracy(device="cpu")
+    key = "raft_accuracy_64x64_compact_6it"
+    a, p = acc[key], acc_cpu[key]
+    check(abs(a["f32"]["epe"] - p["f32"]["epe"]) <= SCRIPT_EPE_TOL
+          and abs(a["bf16"]["epe"] - a["f32"]["epe"]) <= SCRIPT_BF16_EPE,
+          f"accuracy: card {a}, CPU {p}")
+    anyt = counted(raft_bf16_eval.anytime, device=dev)["raft_anytime"]
+    anyt_cpu = raft_bf16_eval.anytime(device="cpu")["raft_anytime"]
+    check(all(abs(anyt[k] - anyt_cpu[k]) <= SCRIPT_EPE_TOL
+              for k in ("epe_k6", "epe_k12", "zero_flow_epe")),
+          f"anytime: card {anyt}, CPU {anyt_cpu}")
+    check(totals["raft_lookup"] == 0, "accuracy / anytime launched the "
+          "lookup kernel: they take the all-pairs route")
+    print(f"[script] accuracy 16 pairs 64x64: f32 EPE {a['f32']['epe']} "
+          f"(CPU {p['f32']['epe']}), bf16 {a['bf16']['epe']} (CPU "
+          f"{p['bf16']['epe']}), epe_delta_bf16_minus_f32 "
+          f"{a['epe_delta_bf16_minus_f32']} (CPU "
+          f"{p['epe_delta_bf16_minus_f32']}); anytime epe_k6 "
+          f"{anyt['epe_k6']} / epe_k12 {anyt['epe_k12']} (CPU "
+          f"{anyt_cpu['epe_k6']} / {anyt_cpu['epe_k12']}), zero flow "
+          f"{anyt['zero_flow_epe']}; card {card}")
+
+    # 12b. speed and speed_sidecar at 1x440x1024.
+    speed = counted(raft_bf16_eval.speed, device=dev)
+    sp = speed["raft_speed_1024x440"]
+    for name in ("f32", "bf16", "bf16_last_up"):
+        check(sp[name]["lookup_launches_per_call"] == {"1it": 1, "12it": 12},
+              f"speed {name}: lookup launches per call "
+              f"{sp[name]['lookup_launches_per_call']}, expected 1 / 12")
+        print(f"[script] speed {name} 1x440x1024: {sp[name]['ms_12it']} ms "
+              f"at 12 iterations ({sp[name]['fps_12it']} fps), "
+              f"{sp[name]['per_iteration_ms']} ms per iteration, "
+              f"encoders + set-up {sp[name]['encoders_plus_init_ms']} ms; "
+              f"card {card}")
+    print(f"[script] speed speedup_bf16 {sp['speedup_bf16']} (f32 / bf16 at "
+          f"12 iterations); card {card}")
+    side = counted(raft_bf16_eval.speed_sidecar, device=dev)["raft_speed"]
+    for key, n_it in (("shipped_k12", 12), ("shipped_k6", 6),
+                      ("parity_f32_k12", 12)):
+        check(side[key]["lookup_launches_per_call"] == n_it,
+              f"speed_sidecar {key}: {side[key]['lookup_launches_per_call']}"
+              f" lookup launches per call, expected {n_it}")
+        print(f"[script] speed_sidecar {key} 1x440x1024: {side[key]['ms']} "
+              f"ms ({side[key]['fps']} fps); card {card}")
+
+    # 12c. split at 55x128: the lookup loop against the same loop on the
+    # plain lookup, on the card.
+    split = counted(raft_bf16_eval.split, device=dev)["raft_iteration_split"]
+    check(split["lookup_launches_per_loop"] == split["iterations"] == 12,
+          f"split: {split['lookup_launches_per_loop']} lookup launches per "
+          "loop of 12")
+    cfg = RaftConfig(low_memory=True, dtype=torch.bfloat16,
+                     upsample_last_only=True)
+    x = raft_bf16_eval.split_inputs(55, 128, cfg, dev)
+    loop = functools.partial(raft_bf16_eval.lookup_loop, x["fmap0"],
+                             x["fpyr"], x["ref_locs"],
+                             cfg.correlation_radius, 12)
+    kernel_locs, plain_locs = loop(), loop(lookup=lookup_correlation_otf)
+    locs_err = float(((kernel_locs - plain_locs).abs()
+                      / (1 + plain_locs.abs())).max())
+    plain_sum = float(plain_locs.sum())
+    check(locs_err <= SPLIT_LOCS_RTOL and abs(
+        split["lookup_checksum"] - plain_sum) <= SPLIT_LOCS_RTOL * abs(
+            plain_sum), f"split: the kernel's loop {locs_err} from the plain "
+          f"loop's locations, checksum {split['lookup_checksum']} against "
+          f"{plain_sum}")
+    # Where an iteration's time goes: the update loop alone and the whole
+    # shipped call, by device busy time against wall time.
+    update = flax_init_(UpdateBlock(cfg).to(dev).to(
+        memory_format=torch.channels_last).eval(), 0)
+    profile_window("split's update loop (12 steps, 55x128, bf16)",
+                   lambda: raft_bf16_eval.update_loop(
+                       update, x["net0"], x["inp"], x["corr0"], x["flow0"],
+                       12), calls=3)
+    shipped = flax_init_(Raft(dataclasses.replace(cfg, max_iterations=12),
+                              device=dev), 0)
+    images = raft_bf16_eval._images(440, 1024, dev)
+    profile_window("shipped RAFT call (bf16, upsample_last_only, 12 "
+                   "iterations, 1x440x1024)", lambda: shipped(*images),
+                   calls=3)
+    print(f"[script] split 55x128 bf16: lookup "
+          f"{split['lookup_ms_per_iteration']} ms, update block "
+          f"{split['update_block_ms_per_iteration']} ms, sum "
+          f"{split['sum_ms_per_iteration']} ms per iteration; the whole "
+          f"call (bf16_last_up, 440x1024) "
+          f"{split['whole_call_per_iteration_ms']} ms per iteration; lookup "
+          f"loop {locs_err:.3g} from the plain loop (checksum "
+          f"{split['lookup_checksum']} / {plain_sum}); card {card}")
+
+    # 12d. time_klt_modes at N=10240: tracked against the plain path on the
+    # card, one launch per call.
+    for mode, method in (("fast", KltMethod.FAST),
+                         ("direct", KltMethod.DIRECT),
+                         ("inverse", KltMethod.INVERSE)):
+        r = counted(time_klt_modes.run, mode, device=dev)
+        rp, cp, uv, source = time_klt_modes.klt_inputs(N, device=dev)
+        opts = KltOptions(max_track_points=N, method=method)
+        skip = torch.zeros(N, dtype=torch.bool, device=dev)
+        if method == KltMethod.FAST:
+            _, st = basic.track_pyramid_fast_reference(opts, rp, cp, uv, uv,
+                                                       skip)
+        else:
+            _, st = basic.track_pyramid_iter_reference(
+                opts, rp, cp, uv, uv,
+                torch.zeros(N, dtype=torch.int8, device=dev), skip)
+        plain = int((st == 1).sum())
+        check(r["launches_per_call"] == 1 and abs(r["tracked"] - plain)
+              <= max(1, int(KLT_STATUS_SHARE * N)),
+              f"time_klt_modes {mode}: {r['launches_per_call']} launches, "
+              f"tracked {r['tracked']} against the plain path's {plain}")
+        print(f"[script] time_klt_modes {mode} N={N} ({source} pair): "
+              f"{r['ms']:.4f} ms per call by events, tracked {r['tracked']} "
+              f"(plain {plain}), {r['launches_per_call']} launch per call; "
+              f"card {card}")
+
+    # 12e. klt_multipair at its defaults, K = 1, 2, 4.
+    for k in MULTIPAIR_KS:
+        r = counted(klt_multipair.run, k, device=dev)
+        n_all = k * r["n_per_pair"]
+        check(r["composite_launches"] == 1
+              and r["sequential_launches"] == k,
+              f"klt_multipair K={k}: {r['composite_launches']} / "
+              f"{r['sequential_launches']} launches, expected 1 / {k}")
+        check(r["status_mismatch_composite_vs_sequential_interior"] == 0
+              and r["max_pos_diff_composite_vs_sequential_interior_px"]
+              <= DEMO_FLOW_TOL,
+              f"klt_multipair K={k}: composite against sequential {r}")
+        check(0 <= r["status_mismatch_vs_cpu"]
+              <= max(1, int(KLT_STATUS_SHARE * n_all)),
+              f"klt_multipair K={k}: {r['status_mismatch_vs_cpu']} statuses "
+              "against the native CPU port (-1: it could not be built)")
+        # Device time: a call launches only the kernel (K for sequential),
+        # timed with the host's enqueue hidden behind a stream sleep.
+        prob = klt_multipair.composite_problem(k, 320, 512, r["n_per_pair"],
+                                               dev)
+        comp_dev, seq_dev = (queued_ms(prob[case])
+                             for case in ("composite", "sequential"))
+        print(f"[script] klt_multipair K={k} 512x320 N={r['n_per_pair']} "
+              f"per pair ({r['source']} crops): composite "
+              f"{r['composite_ms']:.4f} ms per call by events, "
+              f"{comp_dev:.4f} ms device time (queued behind a sleep); "
+              f"sequential {r['sequential_ms']:.4f} ms by events, "
+              f"{seq_dev:.4f} ms device time for its {k} launches; "
+              f"launch_amortization {r['launch_amortization']:.4f} by "
+              f"events, {seq_dev / comp_dev:.4f} by device time; tracked "
+              f"{r['tracked_composite']}; statuses against sequential "
+              f"{r['status_mismatch_composite_vs_sequential']} (all) / "
+              f"{r['status_mismatch_composite_vs_sequential_interior']} "
+              f"(>= {r['interior_margin_px']} rows inside), uv "
+              f"{r['max_pos_diff_composite_vs_sequential_interior_px']:.3g} "
+              f"px; against the CPU port {r['status_mismatch_vs_cpu']} "
+              f"statuses, cpu_ms {r['cpu_ms']:.3f}, vs_cpu_composite "
+              f"{r['vs_cpu_composite']:.2f}; card {card}")
+
+    after = tree_digest("weights")
+    check(after == before, "phase 12 changed files under weights/: "
+          f"{sorted(set(after.items()) ^ set(before.items()))}")
+    print(f"[script] launches over the phase's script calls: {totals}")
+    stage_done("12 (scripts)", t_phase)
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3973,6 +4232,10 @@ def main() -> int:
     for k in kernels:
         if demo_launches[k["name"]]:
             k["demo_launches"] = demo_launches[k["name"]]
+    script_launches = script_paths(dev, card)
+    for k in kernels:
+        if k["name"] in script_launches:
+            k["scripts_launches"] = script_launches[k["name"]]
     for k in kernels:
         if k["name"] in sharded:
             k["sharded_launches"] = sharded[k["name"]]

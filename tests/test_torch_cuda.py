@@ -1355,3 +1355,69 @@ def test_cotracker_train_step_card_matches_cpu(card):
     _, opt = step_card_vs_cpu("CoTracker step", card, *steps, params,
                               tx.init(params), pool[0], (0,))
     assert all(float(v.abs().max()) > 0 for v in opt["mu"].values())
+
+
+# The port's timing and evaluation scripts (feature_tracker_tpu_torch/
+# scripts/) at small shapes: each mode on the card against the same mode
+# on the CPU, with the kernels' launches per call (kernel 5 once per RAFT
+# iteration with low_memory, kernels 1 and 2 once per tracker call).
+@pytest.mark.parametrize("mode", ["accuracy", "anytime", "speed",
+                                  "speed_sidecar", "split"])
+def test_raft_script_mode_on_card_matches_cpu(card, mode):
+    from feature_tracker_tpu_torch.scripts import raft_bf16_eval
+
+    before = lookup_correlation_cuda.launches
+    small = dict(h=64, w=128, iterations=2, iters=1, rounds=1)
+    if mode in ("accuracy", "anytime"):
+        fn = getattr(raft_bf16_eval, mode)
+        got, want = (fn(n_batches=1, device=d) for d in (card, "cpu"))
+        assert lookup_correlation_cuda.launches == before   # all-pairs
+        if mode == "accuracy":
+            got = got["raft_accuracy_64x64_compact_6it"]
+            want = want["raft_accuracy_64x64_compact_6it"]
+            assert abs(got["f32"]["epe"] - want["f32"]["epe"]) <= 1e-3
+            assert abs(got["bf16"]["epe"] - got["f32"]["epe"]) <= 0.05
+        else:
+            got, want = got["raft_anytime"], want["raft_anytime"]
+            for key in ("epe_k6", "epe_k12", "zero_flow_epe"):
+                assert abs(got[key] - want[key]) <= 1e-3, key
+    elif mode == "speed":
+        out = raft_bf16_eval.speed(device=card, **small)["raft_speed_128x64"]
+        for name in ("f32", "bf16", "bf16_last_up"):
+            assert out[name]["lookup_launches_per_call"] == {"1it": 1,
+                                                             "2it": 2}
+        assert out["clock"] == "cuda events" and out["card"] != "cpu"
+    elif mode == "speed_sidecar":
+        out = raft_bf16_eval.speed_sidecar(device=card, **small)["raft_speed"]
+        assert [out[k]["lookup_launches_per_call"] for k in (
+            "shipped_k2", "shipped_k1", "parity_f32_k2")] == [2, 1, 2]
+    else:
+        got, want = (raft_bf16_eval.split(device=d, **small)[
+            "raft_iteration_split"] for d in (card, "cpu"))
+        assert got["lookup_launches_per_loop"] == 2
+        assert want["lookup_launches_per_loop"] == 0
+        assert got["lookup_checksum"] == pytest.approx(
+            want["lookup_checksum"], rel=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["fast", "direct", "inverse", "multipair"])
+def test_klt_script_on_card_matches_cpu(card, mode):
+    from feature_tracker_tpu_torch.scripts import klt_multipair, time_klt_modes
+
+    if mode == "multipair":
+        kw = dict(inner=2, iters=1, rounds=1)
+        got = klt_multipair.run(2, 160, 256, 512, device=card, **kw)
+        want = klt_multipair.run(2, 160, 256, 512, device="cpu", **kw)
+        assert (got["composite_launches"], got["sequential_launches"]) == (
+            1, 2)
+        assert got["status_mismatch_composite_vs_sequential_interior"] == 0
+        assert got["max_pos_diff_composite_vs_sequential_interior_px"] <= 0.2
+        assert 0 <= got["status_mismatch_vs_cpu"] <= want[
+            "status_mismatch_vs_cpu"] + 2
+        assert abs(got["tracked_composite"] - want["tracked_composite"]) <= 1
+        return
+    n = 1024
+    got, want = (time_klt_modes.run(mode, n=n, iters=1, rounds=1, device=d)
+                 for d in (card, "cpu"))
+    assert got["launches_per_call"] == 1 and want["launches_per_call"] == 0
+    assert abs(got["tracked"] - want["tracked"]) <= 1
