@@ -75,6 +75,9 @@
 // takes half the SM clocks per feature with the same shares (60 % level
 // setups, 35 % steps' pixels, 4 % reductions, 2 % solves): every phase
 // shrank, and the loads of image pixels still set the pace.
+// Counting (tracing on: a non-null `counters`): lane 0 of each warp adds
+// its feature's steps and a 1 with two atomics after its last store; the
+// test of the pointer is the same in every warp, and null costs nothing.
 // The float32 sums run in another order than in the plain version, so a
 // borderline feature may flip at the convergence threshold (compared by
 // count). Built with --fmad=false: the plain version rounds every multiply
@@ -138,7 +141,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2)
                             const float* __restrict__ cur_uv,
                             const uint8_t* __restrict__ skip,
                             float* __restrict__ out_uv,
-                            int8_t* __restrict__ out_status, int n) {
+                            int8_t* __restrict__ out_status, int n,
+                            unsigned long long* __restrict__ counters) {
   constexpr int K = kPix > 0 ? kPix : 1;
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
@@ -178,6 +182,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2)
   cx *= scale;
   cy *= scale;
   int status = kNotTracked;
+  int steps = 0;  // Gauss-Newton steps begun, over the levels
 
   for (int lvl = pyr.levels - 1; lvl >= 0; --lvl) {
     const float* __restrict__ R = pyr.ref[lvl];
@@ -238,6 +243,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2)
     if (n_ref > 0) {
       FastBreaks breaks;
       for (int it = 0; it < opt.max_iterations; ++it) {
+        ++steps;
         const Anchor ca = make_anchor(cx, cy);
         const int c_min_r = ca.r - pr / 2, c_min_c = ca.c - pc / 2;
         // Counted: the current and the reference centre taps are valid.
@@ -329,6 +335,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2)
     out_uv[2 * f] = cx;
     out_uv[2 * f + 1] = cy;
     out_status[f] = (int8_t)status;
+    if (counters != nullptr) {  // the same for every warp of the launch
+      atomicAdd(&counters[0], (unsigned long long)steps);
+      atomicAdd(&counters[1], 1ull);
+    }
   }
 }
 
@@ -359,7 +369,10 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success). Level pointer and size arrays live on the host; image, uv,
-// skip and output pointers on the device.
+// skip and output pointers on the device. `counters`: null, or two int64
+// on the device; the kernel adds its Gauss-Newton steps (summed over the
+// levels and the non-skipped lanes) to the first and its non-skipped
+// lanes to the second.
 int ftk_klt_fast_pyramid(const void* const* ref_levels,
                          const void* const* cur_levels, const int* heights,
                          const int* widths, int levels, const void* ref_uv,
@@ -367,7 +380,8 @@ int ftk_klt_fast_pyramid(const void* const* ref_levels,
                          void* out_status, int n, int patch_row_half_size,
                          int patch_col_half_size, int max_iterations,
                          int max_tolerance_large_step,
-                         float max_converge_step, void* stream) {
+                         float max_converge_step, void* stream,
+                         long long* counters) {
   Pyramids pyr;
   Options opt;
   if (n < 0 ||
@@ -396,7 +410,9 @@ int ftk_klt_fast_pyramid(const void* const* ref_levels,
   const uint8_t* skip_p = (const uint8_t*)skip;
   float* ouv_p = (float*)out_uv;
   int8_t* ost_p = (int8_t*)out_status;
-  void* args[] = {&pyr, &opt, &ref_p, &cur_p, &skip_p, &ouv_p, &ost_p, &n};
+  unsigned long long* cnt_p = (unsigned long long*)counters;
+  void* args[] = {&pyr,   &opt,  &ref_p, &cur_p, &skip_p,
+                  &ouv_p, &ost_p, &n,    &cnt_p};
   e = cudaLaunchKernel(kernel, dim3(blocks), dim3(32 * warps), args, smem,
                        (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;

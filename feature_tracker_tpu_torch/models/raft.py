@@ -65,6 +65,7 @@ from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
     correlation_scale,
     lookup_correlation_cuda,
 )
+from feature_tracker_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -558,11 +559,16 @@ class Raft(nn.Module):
         return flows, flax_order(stats)
 
     def _forward(self, ref_image, cur_image, train, bands):
+        with span("raft.forward"):
+            return self._flows(ref_image, cur_image, train, bands)
+
+    def _flows(self, ref_image, cur_image, train, bands):
         c = self.cfg
-        ref, cur = (
-            (2.0 * (torch.as_tensor(img, dtype=torch.float32,
-                                    device=self.device) / 255.0)
-             - 1.0).to(c.dtype) for img in (ref_image, cur_image))
+        with span("raft.input"):
+            ref, cur = (
+                (2.0 * (torch.as_tensor(img, dtype=torch.float32,
+                                        device=self.device) / 255.0)
+                 - 1.0).to(c.dtype) for img in (ref_image, cur_image))
         b = ref.shape[0]
 
         if train:
@@ -612,8 +618,9 @@ class Raft(nn.Module):
                 corr = lookup_correlation(pyramid, cur_locs,
                                           c.correlation_radius)
             flow = (cur_locs - ref_locs).to(c.dtype)
-            net, up_mask, delta = self.UpdateBlock_0(
-                net, inp, corr.to(c.dtype), flow, bands)
+            with span("raft.update"):
+                net, up_mask, delta = self.UpdateBlock_0(
+                    net, inp, corr.to(c.dtype), flow, bands)
             cur_locs = cur_locs + delta.float()
             if not c.upsample_last_only:
                 predictions.append(upsample_flow_convex(

@@ -26,6 +26,13 @@ from feature_tracker_tpu_torch.ops._build import (
     load_library,
     phase_clock_library,
 )
+from feature_tracker_tpu_torch.utils.profiling import (
+    count,
+    counts_launches,
+    enabled,
+    kernel_counters,
+    span,
+)
 
 MAX_LEVELS = 8  # FTK_MAX_LEVELS in csrc/klt_common.cuh
 FAST_LIBRARY = ("ftk_klt_fast", ("klt_fast.cu",))
@@ -46,7 +53,11 @@ def bind(library, function: str, argtypes) -> ctypes.CDLL:
     return lib
 
 
-_FAST_ARGTYPES = [_VP] * 4 + [_INT] + [_VP] * 5 + [_INT] * 5 + [_FLOAT, _VP]
+_FAST_ARGTYPES = ([_VP] * 4 + [_INT] + [_VP] * 5 + [_INT] * 5
+                  + [_FLOAT, _VP, _VP])
+# The counters the FAST kernel adds to while tracing: Gauss-Newton steps
+# (summed over the levels) and non-skipped lanes.
+FAST_COUNTERS = ("klt.gn_steps", "klt.lanes")
 # The phases csrc/klt_fast.cu marks, in its order.
 FAST_PHASES = ("level setup", "step pixels", "step reduction",
                "step solve and update")
@@ -196,7 +207,15 @@ def _launch_pyramid(where: str, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
     """Check the inputs and launch the FAST kernel (``status`` None) or the
     DIRECT / INVERSE kernel, of ``lib`` if given (a build with phase
     clocks). Returns the outputs and whether a kernel was launched (not for
-    zero features)."""
+    zero features). While tracing, the FAST kernel counts its steps and
+    lanes (``FAST_COUNTERS``) into a row of the tracer's device ring."""
+    with span("klt.launch"):
+        return _checked_launch(where, opts, ref_pyr, cur_pyr, ref_uv, cur_uv,
+                               status, skip, lib)
+
+
+def _checked_launch(where, opts, ref_pyr, cur_pyr, ref_uv, cur_uv, status,
+                    skip, lib):
     dev = ref_uv.device
     levels = check_pyramids(where, dev, ref_pyr, cur_pyr)
     n = ref_uv.shape[0]
@@ -221,7 +240,8 @@ def _launch_pyramid(where: str, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
                 skip.data_ptr(), out_uv.data_ptr(), out_st.data_ptr(), n,
                 opts.patch_row_half_size, opts.patch_col_half_size,
                 opts.max_iterations, opts.max_tolerance_large_step,
-                float(opts.max_converge_step), stream)
+                float(opts.max_converge_step), stream,
+                kernel_counters(dev, FAST_COUNTERS))
         else:
             lib = lib or load_klt_iter_library()
             function = "ftk_klt_iter_pyramid"
@@ -248,8 +268,10 @@ def track_pyramid_fast_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
 
     Returns ``(uv [N, 2] float32, status [N] int8)``; the final outside
     check and the skip pass-through of the input status are the caller's.
-    CPU tensors take the plain PyTorch version; CUDA tensors launch the
-    kernel (counted in ``track_pyramid_fast_cuda.launches``) or raise."""
+    CPU tensors take the plain PyTorch version (which, while tracing,
+    counts its steps and lanes as the kernel does); CUDA tensors launch the
+    kernel (counted in ``track_pyramid_fast_cuda.launches``) or raise.
+    Either is a ``klt.launch`` span."""
     # Imported here: trackers.klt imports this module.
     from feature_tracker_tpu_torch.trackers.klt.basic import (
         track_pyramid_fast_reference,
@@ -257,8 +279,13 @@ def track_pyramid_fast_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
     check(opts.method == KltMethod.FAST, "track_pyramid_fast_cuda",
           "FAST mode only; DIRECT/INVERSE is track_pyramid_iter_cuda")
     if ref_uv.device.type == "cpu":
-        return track_pyramid_fast_reference(opts, ref_pyr, cur_pyr, ref_uv,
-                                            cur_uv, skip)
+        with span("klt.launch"):
+            uv, st, steps = track_pyramid_fast_reference(
+                opts, ref_pyr, cur_pyr, ref_uv, cur_uv, skip, with_steps=True)
+            if enabled():
+                count(FAST_COUNTERS[0], int(steps.sum()))
+                count(FAST_COUNTERS[1], int((~skip).sum()))
+            return uv, st
     check(ref_uv.device.type == "cuda", "track_pyramid_fast_cuda",
           f"unsupported device {ref_uv.device}")
     out, launched = _launch_pyramid("track_pyramid_fast_cuda", opts, ref_pyr,
@@ -280,7 +307,8 @@ def track_pyramid_iter_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
     Returns ``(uv [N, 2] float32, status [N] int8)``; the final outside
     check is the caller's. CPU tensors take the plain PyTorch version;
     CUDA tensors launch the kernel (counted in
-    ``track_pyramid_iter_cuda.launches``) or raise."""
+    ``track_pyramid_iter_cuda.launches``; a ``klt.launch`` span) or
+    raise."""
     from feature_tracker_tpu_torch.trackers.klt.basic import (
         track_pyramid_iter_reference,
     )
@@ -344,5 +372,4 @@ def iter_occupancy(opts: KltOptions) -> dict:
                      int(opts.method == KltMethod.INVERSE))
 
 
-track_pyramid_fast_cuda.launches = 0
-track_pyramid_iter_cuda.launches = 0
+counts_launches(track_pyramid_fast_cuda, track_pyramid_iter_cuda)

@@ -31,6 +31,7 @@ from feature_tracker_tpu_torch.ops.cuda_klt import (
     raise_on_error,
     read_phase_clocks,
 )
+from feature_tracker_tpu_torch.utils.profiling import counts_launches, span
 
 # The one library built with fused multiply-adds (see the source's header).
 LOOKUP_LIBRARY = ("ftk_raft_lookup", ("raft_lookup.cu",), True)
@@ -171,14 +172,17 @@ def lookup_correlation_cuda(fmap0, fmap1_pyramid, locations, radius: int):
     Returns ``[B, H, W, L*(2r+1)^2]`` float32 correlations (scaled by
     ``1/sqrt(C)``), ordered as ``lookup_correlation_otf``. CPU tensors take
     that plain PyTorch version; CUDA tensors launch the kernel (counted in
-    ``lookup_correlation_cuda.launches``) or raise."""
+    ``lookup_correlation_cuda.launches``) or raise. Either is a
+    ``raft_lookup.launch`` span."""
     # Imported here: models.raft imports this module.
     from feature_tracker_tpu_torch.models.raft import lookup_correlation_otf
 
     where = "lookup_correlation_cuda"
     dev = fmap0.device
     if dev.type == "cpu":
-        return lookup_correlation_otf(fmap0, fmap1_pyramid, locations, radius)
+        with span("raft_lookup.launch"):
+            return lookup_correlation_otf(fmap0, fmap1_pyramid, locations,
+                                          radius)
     check(dev.type == "cuda", where, f"unsupported device {dev}")
     levels = len(fmap1_pyramid)
     check(1 <= levels <= MAX_LEVELS, where,
@@ -208,6 +212,11 @@ def lookup_correlation_cuda(fmap0, fmap1_pyramid, locations, radius: int):
 def _launch_lookup(lib, fmap0, fmap1_pyramid, locations, radius: int):
     """Allocate the output and launch ``lib``'s kernel on checked inputs
     (nothing is launched for an empty output)."""
+    with span("raft_lookup.launch"):
+        return _enqueue_lookup(lib, fmap0, fmap1_pyramid, locations, radius)
+
+
+def _enqueue_lookup(lib, fmap0, fmap1_pyramid, locations, radius: int):
     dev = fmap0.device
     b, h, w, c = fmap0.shape
     levels = len(fmap1_pyramid)
@@ -244,4 +253,4 @@ def lookup_phase_clocks(fmap0, fmap1_pyramid, locations, radius: int) -> dict:
     return read_phase_clocks(lib, LOOKUP_PHASES)
 
 
-lookup_correlation_cuda.launches = 0
+counts_launches(lookup_correlation_cuda)

@@ -34,6 +34,7 @@ from feature_tracker_tpu_torch.ops.cuda_klt import (
     raise_on_error,
     read_phase_clocks,
 )
+from feature_tracker_tpu_torch.utils.profiling import counts_launches
 
 AFFINE_LIBRARY = ("ftk_klt_affine", ("klt_affine.cu",))
 LSSD_LIBRARY = ("ftk_klt_lssd", ("klt_lssd.cu",))
@@ -326,7 +327,5 @@ def lssd_track_level_cuda(opts: KltOptions, luminance: bool, ref_img,
     return out
 
 
-affine_track_pyramid_cuda.launches = 0
-affine_track_level_cuda.launches = 0
-lssd_track_pyramid_cuda.launches = 0
-lssd_track_level_cuda.launches = 0
+counts_launches(affine_track_pyramid_cuda, affine_track_level_cuda,
+                lssd_track_pyramid_cuda, lssd_track_level_cuda)

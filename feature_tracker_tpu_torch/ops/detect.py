@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from feature_tracker_tpu_torch.core.config import HarrisOptions
 from feature_tracker_tpu_torch.core.device import resolve_device
+from feature_tracker_tpu_torch.utils.profiling import count, host_value, span
 
 
 def _box_filter(a: torch.Tensor, half: int) -> torch.Tensor:
@@ -55,10 +56,11 @@ def _chaotic_greedy(valid: torch.Tensor, higher_f: torch.Tensor):
     independent groups resolve per round. Invalid candidates start
     decided (never kept), so rounds = depth of the chains among valid
     ones. The counts come from a float32 matmul of 0/1 values: exact
-    integers, TF32 or not."""
+    integers, TF32 or not. Each round's test waits for the device."""
     decided = ~valid
     keep = torch.zeros_like(valid)
-    while not bool(decided.all()):
+    while not host_value(decided.all()):
+        count("detect.suppression_rounds")
         rhs = torch.stack([keep.to(higher_f.dtype),
                            (~decided).to(higher_f.dtype)], dim=-1)
         counts = higher_f @ rhs
@@ -115,6 +117,11 @@ def detect_good_features(img, max_num: int,
       (uv ``[max_num, 2]`` float32 (x, y), padded entries (-1, -1);
        num: int32 0-dim tensor, the count of valid features).
     """
+    with span("detect.features"):
+        return _detect(img, max_num, opts, device)
+
+
+def _detect(img, max_num: int, opts: HarrisOptions, device):
     dev = resolve_device(device)
     img = torch.as_tensor(img, dtype=torch.float32, device=dev)
     h, w = img.shape
@@ -138,7 +145,7 @@ def detect_good_features(img, max_num: int,
     top_scores, flat_idx = top_scores[:k], flat_idx[:k]
     # Valid candidates form a prefix (invalid ones score -inf); the greedy
     # pass only needs that prefix.
-    n_valid = int((top_scores > -torch.inf).sum())
+    n_valid = host_value((top_scores > -torch.inf).sum())
     cy = (flat_idx[:n_valid] // w).to(torch.float32)
     cx = (flat_idx[:n_valid] % w).to(torch.float32)
 
@@ -149,7 +156,8 @@ def detect_good_features(img, max_num: int,
     keep = greedy_suppression(
         torch.ones(n_valid, dtype=torch.bool, device=dev), conflict)
 
-    sel = torch.nonzero(keep).reshape(-1)[:max_num]
+    sel = torch.nonzero(keep).reshape(-1)[:max_num]     # waits for its size
+    count("host_syncs")
     uv = torch.full((max_num, 2), -1.0, dtype=torch.float32, device=dev)
     uv[:sel.shape[0], 0] = cx[sel]
     uv[:sel.shape[0], 1] = cy[sel]

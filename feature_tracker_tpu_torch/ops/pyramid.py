@@ -11,6 +11,7 @@ import warnings
 import torch
 
 from feature_tracker_tpu_torch.core.device import resolve_device
+from feature_tracker_tpu_torch.utils.profiling import host_value, span
 
 
 def _build(img: torch.Tensor, levels: int, quantize: bool):
@@ -45,17 +46,18 @@ def build_pyramid(img, levels: int, quantize: bool = True, device="cuda"):
     pixel becomes 0 or 1); a warning points to ``quantize=False`` when the
     input's value range suggests it.
     """
-    dev = resolve_device(device)
-    img = torch.as_tensor(img, dtype=torch.float32, device=dev)
-    if quantize and img.numel():
-        mx = float(img.max())
-        if 0.0 < mx <= 1.5 and float(img.min()) >= 0.0 \
-                and bool(torch.any(img != torch.floor(img))):
-            warnings.warn(
-                "build_pyramid(quantize=True) floor-truncates level 0 "
-                f"to integers, but the input looks like normalized "
-                f"[0, 1] imagery (max={mx:.4g}) — the finest level "
-                "would collapse to 0/1. Pass quantize=False and track "
-                "with KltOptions(integer_pyramid=False), or scale the "
-                "image to gray values first.", stacklevel=2)
-    return _build(img, levels, quantize)
+    with span("pyramid.build"):
+        dev = resolve_device(device)
+        img = torch.as_tensor(img, dtype=torch.float32, device=dev)
+        if quantize and img.numel():
+            mx = host_value(img.max())
+            if 0.0 < mx <= 1.5 and host_value(img.min()) >= 0.0 \
+                    and host_value(torch.any(img != torch.floor(img))):
+                warnings.warn(
+                    "build_pyramid(quantize=True) floor-truncates level 0 "
+                    f"to integers, but the input looks like normalized "
+                    f"[0, 1] imagery (max={mx:.4g}) — the finest level "
+                    "would collapse to 0/1. Pass quantize=False and track "
+                    "with KltOptions(integer_pyramid=False), or scale the "
+                    "image to gray values first.", stacklevel=2)
+        return _build(img, levels, quantize)

@@ -22,6 +22,7 @@ from feature_tracker_tpu_torch.core.status import TrackStatus
 from feature_tracker_tpu_torch.ops.detect import detect_good_features
 from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
 from feature_tracker_tpu_torch.trackers.klt import BasicKlt
+from feature_tracker_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +69,7 @@ class TrackingFrontEnd:
         uv, num = detect_good_features(img, self.cfg.capacity,
                                        self.cfg.harris, device=self.device)
         cand = uv.cpu().numpy()[:int(num)]
+        count("host_syncs", 2)
         if cand.size == 0:
             return
         live = self._uv[~self._dead]
@@ -86,11 +88,12 @@ class TrackingFrontEnd:
     def _step(self, img):
         """Build the new frame's pyramid and track the live lanes into it."""
         pyr = build_pyramid(img, self.cfg.pyramid_levels, device=self.device)
-        dead = torch.as_tensor(self._dead, device=self.device)
+        with span("frontend.upload"):
+            dead = torch.as_tensor(self._dead, device=self.device)
+            uv = torch.as_tensor(self._uv, device=self.device)
         status_in = torch.where(  # dead lanes are skipped
             dead, int(TrackStatus.OUTSIDE),
             int(TrackStatus.NOT_TRACKED)).to(torch.int8)
-        uv = torch.as_tensor(self._uv, device=self.device)
         uv_out, st = self.tracker.track(self._prev_pyr, pyr, uv, uv,
                                         status_in)
         return pyr, uv_out, st
@@ -98,8 +101,14 @@ class TrackingFrontEnd:
     def process_frame(self, frame) -> FrameResult:
         """frame: [H, W] gray 0..255 (numpy or tensor). Returns the tracked
         state after this frame."""
+        with span("frontend.frame"):
+            return self._process(frame)
+
+    def _process(self, frame) -> FrameResult:
         self._frame_id += 1
-        img = torch.as_tensor(frame, dtype=torch.float32, device=self.device)
+        with span("frontend.upload"):
+            img = torch.as_tensor(frame, dtype=torch.float32,
+                                  device=self.device)
 
         if self._prev_pyr is None:
             pyr = build_pyramid(img, self.cfg.pyramid_levels,
@@ -110,8 +119,10 @@ class TrackingFrontEnd:
                               np.int8(int(TrackStatus.TRACKED)))
         else:
             pyr, uv_out, st = self._step(img)
-            status = st.cpu().numpy()
-            self._uv = uv_out.cpu().numpy().copy()
+            with span("frontend.readback"):
+                status = st.cpu().numpy()
+                self._uv = uv_out.cpu().numpy().copy()
+            count("host_syncs", 2)
             failed = status != int(TrackStatus.TRACKED)
             self._dead |= failed
             self._ids[self._dead] = -1

@@ -40,6 +40,7 @@ from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
 from feature_tracker_tpu_torch.trackers.klt import affine as _affine
 from feature_tracker_tpu_torch.trackers.klt import lssd as _lssd
 from feature_tracker_tpu_torch.trackers.klt.engine import final_outside_check
+from feature_tracker_tpu_torch.utils.profiling import span
 
 __all__ = ["BasicKlt", "AffineKlt", "LssdKlt", "KltOptions", "KltMethod"]
 
@@ -171,10 +172,11 @@ class _KltBase:
         """Track ``ref_uv [N, 2]`` from ``ref_pyramid`` into
         ``cur_pyramid`` (levels finest first). Returns ``(uv [N, 2]
         float32, status [N] int8)`` on the tracker's device."""
-        ref_uv, cur_uv, status = self._prep(ref_uv, cur_uv, status)
-        return self._pyramid(tuple(self._f32(l) for l in ref_pyramid),
-                             tuple(self._f32(l) for l in cur_pyramid),
-                             ref_uv, cur_uv, status)
+        with span("klt.track"):
+            ref_uv, cur_uv, status = self._prep(ref_uv, cur_uv, status)
+            return self._pyramid(tuple(self._f32(l) for l in ref_pyramid),
+                                 tuple(self._f32(l) for l in cur_pyramid),
+                                 ref_uv, cur_uv, status)
 
     def track_single_level(self, ref_image, cur_image, ref_uv, cur_uv=None,
                            status=None):

@@ -19,6 +19,7 @@ from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
     staged_share,
 )
 from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
+from feature_tracker_tpu_torch.pipeline import FrontEndConfig, TrackingFrontEnd
 from feature_tracker_tpu_torch.trackers.klt import (
     AffineKlt,
     BasicKlt,
@@ -36,6 +37,7 @@ from feature_tracker_tpu_torch.trackers.klt.lssd import (
     lssd_track_level_reference,
     lssd_track_pyramid_reference,
 )
+from feature_tracker_tpu_torch.utils import profiling
 
 from chip_smoke import (
     boundary_locations,
@@ -46,9 +48,18 @@ from chip_smoke import (
     scattered_locations,
     small_quat,
 )
-from synthetic import se2_pair, translated_pair
+from synthetic import Texture, se2_pair, translated_pair
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def tracing_off():
+    """No test inherits the port's tracing from one whose profiler switched
+    it on."""
+    yield
+    profiling.disable()
+    profiling.reset()
 
 
 @pytest.fixture
@@ -1421,3 +1432,79 @@ def test_klt_script_on_card_matches_cpu(card, mode):
                  for d in (card, "cpu"))
     assert got["launches_per_call"] == 1 and want["launches_per_call"] == 0
     assert abs(got["tracked"] - want["tracked"]) <= 1
+
+
+# The port's tracer on the card (utils/profiling.py).
+
+def test_kernel_counts_the_plain_versions_steps(card):
+    """Kernel 1's ``klt.gn_steps``, read a lane at a time (one launch each,
+    a call each), against the plain version's steps on chip_smoke.py's
+    headline pair, over the lanes whose positions agree within 0.01 px: at
+    most 0.1 % differ. One launch of every lane counts their sum."""
+    from chip_smoke import H, LEVELS, N, PAIR_SHIFT, W, uniform_features
+
+    ref, cur = translated_pair(h=H, w=W, shift=PAIR_SHIFT)
+    rp, cp = (build_pyramid(x, LEVELS, device=card) for x in (ref, cur))
+    uv = torch.from_numpy(uniform_features(N, H, W, 20)).to(card)
+    skip = torch.zeros(N, dtype=torch.bool, device=card)
+    opts = KltOptions(max_track_points=N)
+    want_uv, _, want = track_pyramid_fast_reference(opts, rp, cp, uv, uv,
+                                                    skip, with_steps=True)
+    profiling.enable()
+    got_uv, _ = cuda_klt.track_pyramid_fast_cuda(opts, rp, cp, uv, uv, skip)
+    for i in range(N):
+        with profiling.span("test.lane"):
+            cuda_klt.track_pyramid_fast_cuda(opts, rp, cp, uv[i:i + 1],
+                                             uv[i:i + 1], skip[i:i + 1])
+    snap = profiling.snapshot()
+    steps, lanes = (snap.counters[k] for k in cuda_klt.FAST_COUNTERS)
+    assert snap.calls == N + 1 and snap.dropped["kernel_rows"] == 0
+    per_lane = np.array([steps[i + 1] for i in range(N)])
+    assert [lanes[i + 1] for i in range(N)] == [1] * N
+    assert (steps[0], lanes[0]) == (per_lane.sum(), N)
+    agree = ((got_uv - want_uv).abs().amax(-1) <= 0.01).cpu().numpy()
+    differ = agree & (per_lane != want.cpu().numpy())
+    assert agree.sum() >= 0.9 * N and per_lane.sum() > N
+    assert differ.sum() <= 0.001 * N
+
+
+def test_front_end_spans_in_the_kineto_trace(card):
+    """One front-end frame under torch.profiler: every span of a tracked,
+    replenishing frame is a host range of the kineto trace, and the
+    ``klt.launch`` range holds the runtime call that launched kernel 1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tex = Texture(3)
+    frames = [tex.render(480, 752, warp=lambda x, y, k=k: (x - 3.0 * k,
+                                                           y + 2.0 * k))
+              .astype(np.uint8) for k in range(3)]
+    # More live tracks wanted than lanes: every frame replenishes.
+    fe = TrackingFrontEnd(FrontEndConfig(min_live_tracks=301), device=card)
+    for f in frames[:2]:
+        fe.process_frame(f)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fe.process_frame(frames[2])
+        torch.cuda.synchronize()
+    assert profiling.enabled()
+    events = list(prof.profiler.kineto_results.events())
+    host = {}
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CPU:
+            host.setdefault(e.name(), []).append(
+                (e.start_ns(), e.start_ns() + e.duration_ns(),
+                 e.correlation_id()))
+    assert {"frontend.frame", "frontend.upload", "pyramid.build",
+            "klt.track", "klt.launch", "frontend.readback",
+            "detect.features"} <= set(host)
+    kernel = [e for e in events
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and "klt_fast" in e.name()]
+    assert len(kernel) == 1
+    launch = [(s, t) for name, ranges in host.items()
+              if "LaunchKernel" in name
+              for s, t, corr in ranges if corr == kernel[0].correlation_id()]
+    assert len(launch) == 1 and len(host["klt.launch"]) == 1
+    (k0, k1, _), ((l0, l1),) = host["klt.launch"][0], launch
+    assert k0 <= l0 <= l1 <= k1
