@@ -65,6 +65,7 @@ from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
     correlation_scale,
     lookup_correlation_cuda,
 )
+from feature_tracker_tpu_torch.utils.graphs import GraphCache
 from feature_tracker_tpu_torch.utils.profiling import span
 
 
@@ -441,12 +442,25 @@ class MotionEncoder(nn.Module):
         t_corr = F.relu(self.Conv_1(F.relu(self.Conv_0(corr)), bands))
         t_flow = F.relu(self.Conv_3(F.relu(self.Conv_2(flow, bands)), bands))
         out = F.relu(self.Conv_4(torch.cat([t_corr, t_flow], dim=-1), bands))
-        return torch.cat([out, flow], dim=-1)
+        return torch.cat([out, flow.to(out.dtype)], dim=-1)
 
 
 class UpdateBlock(nn.Module):
     """``(net, inp, corr, flow) -> (net, 0.25 * mask, delta)``; ``mask``
-    and ``delta`` are float32 whatever ``cfg.dtype`` is."""
+    and ``delta`` are float32 whatever ``cfg.dtype`` is, and ``corr`` and
+    ``flow`` may come in float32 (the block casts them to ``cfg.dtype``).
+
+    On the card, with autograd off (``torch.inference_mode`` or
+    ``no_grad``), without ``bands`` and outside a stream capture, a call
+    replays a CUDA graph of the block (``utils/graphs.py``), captured at
+    the first call of its signature: the shapes, dtypes and device of the
+    inputs, inference mode, cuDNN's switches (TF32 among them) and the
+    parameters' addresses. It launches the kernels the eager block launches, on the
+    same values, as one graph instead of ~70 launches from the host, and
+    returns copies of the graph's outputs (the graph's own tensors inside
+    :meth:`_lending`). Every other call (training, ``bands``, the CPU) runs
+    the block eagerly. The tracer counts ``raft.update_graph.captures`` and
+    ``raft.update_graph.replays``."""
 
     def __init__(self, cfg: RaftConfig):
         super().__init__()
@@ -462,8 +476,52 @@ class UpdateBlock(nn.Module):
                                 1, dt)
         self.mask_out = Conv(c.mask_hidden_channels, 8 * 8 * 9, 1, 1,
                              torch.float32)
+        self.compute_dtype = dt
+        self._convs = [m for m in self.modules() if isinstance(m, Conv)]
+        self._graphs = GraphCache("raft.update_graph")
+        self._lends = False
 
     def forward(self, net, inp, corr, flow, bands=None):
+        if (net.is_cuda and bands is None and not torch.is_grad_enabled()
+                and not torch.cuda.is_current_stream_capturing()):
+            dt = self.compute_dtype
+            out = self._graphs(self._carried, self._signature(
+                net, inp, corr, flow), (net, inp, corr, flow),
+                (None, None, dt, dt), self._lends)
+            return out if self._lends else tuple(t.clone() for t in out)
+        return self._body(net, inp, corr, flow, bands)
+
+    def _carried(self, net, inp, corr, flow):
+        """The block as captured: the new ``net`` is written over the
+        graph's own ``net`` input and returned as it, so that a loop that
+        passes it back makes no copy."""
+        new, mask, delta = self._body(net, inp, corr, flow)
+        return net.copy_(new), mask, delta
+
+    def _signature(self, *inputs):
+        cudnn = torch.backends.cudnn
+        return (tuple((x.shape, x.dtype) for x in inputs), inputs[0].device,
+                torch.is_inference_mode_enabled(), cudnn.enabled,
+                cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+                tuple(p.data_ptr() for m in self._convs
+                      for p in m._parameters.values()))
+
+    @contextlib.contextmanager
+    def _lending(self):
+        """Inside, a replayed call returns the graph's own output tensors
+        instead of copies, which the next replay of the same signature
+        overwrites, and takes an input passed again as the same tensor as
+        unchanged: for a caller that is done with each output before its
+        next call and changes nothing it passes again (``Raft._flows``:
+        ``net`` goes back in, ``delta`` and the mask are read at once,
+        ``inp`` is the same all through a call)."""
+        self._lends = True
+        try:
+            yield
+        finally:
+            self._lends = False
+
+    def _body(self, net, inp, corr, flow, bands=None):
         motion = self.MotionEncoder_0(corr, flow, bands)
         net = self.SepConvGru_0(torch.cat([inp, motion], dim=-1), net, bands)
         rows = _halo(net, bands, 1)             # both 3x3 heads read net
@@ -515,7 +573,10 @@ class Raft(nn.Module):
     with ``cfg.low_memory`` takes the differentiable plain version
     (``lookup_correlation_otf``) on either device, as JAX does off a TPU.
     With a ``mesh`` (a trainer's), training-mode batch statistics are
-    summed over its ranks.
+    summed over its ranks. In inference on the card each iteration's
+    ``UpdateBlock_0`` call replays a CUDA graph of the block, one per
+    shape; the lookup stays outside it, one launch of kernel 5 an
+    iteration.
 
     ``bands`` (``parallel/height.py::RowBands``, a trainer's on a mesh with
     a ``model`` axis) makes the images this rank's band of rows: every
@@ -611,20 +672,21 @@ class Raft(nn.Module):
 
         cur_locs = ref_locs
         predictions = []
-        for _ in range(c.max_iterations):
-            if c.low_memory:
-                corr = lookup(fmap0, fpyr, cur_locs, c.correlation_radius)
-            else:
-                corr = lookup_correlation(pyramid, cur_locs,
-                                          c.correlation_radius)
-            flow = (cur_locs - ref_locs).to(c.dtype)
-            with span("raft.update"):
-                net, up_mask, delta = self.UpdateBlock_0(
-                    net, inp, corr.to(c.dtype), flow, bands)
-            cur_locs = cur_locs + delta.float()
-            if not c.upsample_last_only:
-                predictions.append(upsample_flow_convex(
-                    cur_locs - ref_locs, up_mask, bands))
+        with self.UpdateBlock_0._lending():
+            for _ in range(c.max_iterations):
+                if c.low_memory:
+                    corr = lookup(fmap0, fpyr, cur_locs,
+                                  c.correlation_radius)
+                else:
+                    corr = lookup_correlation(pyramid, cur_locs,
+                                              c.correlation_radius)
+                with span("raft.update"):
+                    net, up_mask, delta = self.UpdateBlock_0(
+                        net, inp, corr, cur_locs - ref_locs, bands)
+                cur_locs = cur_locs + delta.float()
+                if not c.upsample_last_only:
+                    predictions.append(upsample_flow_convex(
+                        cur_locs - ref_locs, up_mask, bands))
         if c.upsample_last_only:
             return upsample_flow_convex(cur_locs - ref_locs, up_mask,
                                         bands)[None]

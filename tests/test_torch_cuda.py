@@ -807,6 +807,119 @@ def test_raft_on_cuda_matches_cpu(card):
     assert (got.cpu() - want).abs().max() <= 1e-3
 
 
+# Two small configurations: the float32 model, and the shipped setting
+# (bfloat16, upsample_last_only), each over 12 iterations.
+GRAPH_RAFT = {
+    "float32": raft.RaftConfig(
+        max_iterations=12, low_memory=True, feature_channels=64,
+        context_channels=64, hidden_channels=32,
+        correlation_pyramid_levels=2, correlation_hidden_channels=32,
+        correlation_out_channels=16, flow_hidden_channels=16,
+        flow_out_channels=8, motion_out_channels=16,
+        mask_hidden_channels=32),
+    "bfloat16": raft.RaftConfig(
+        max_iterations=12, low_memory=True, feature_channels=96,
+        context_channels=48, hidden_channels=48,
+        correlation_pyramid_levels=3, correlation_radius=2,
+        correlation_hidden_channels=64, correlation_out_channels=32,
+        flow_hidden_channels=32, flow_out_channels=16,
+        motion_out_channels=32, mask_hidden_channels=64,
+        dtype=torch.bfloat16, upsample_last_only=True),
+}
+
+
+def _graph_model(name, seed=31):
+    torch.manual_seed(seed)
+    return raft.Raft(GRAPH_RAFT[name])
+
+
+def _graph_images(b, seed=32, h=64, w=96):
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0, 255, (b, h + 8, w + 8)).astype(np.float32)
+    return base[:, 4:h + 4, 4:w + 4, None], base[:, 5:h + 5, 2:w + 2, None]
+
+
+def _eager(model, ref, cur):
+    """``model``'s inference with autograd on: the update block runs
+    eagerly, by the rule that engages its graph."""
+    with torch.enable_grad(), raft.full_float32():
+        return model._forward(ref, cur, False, None).detach()
+
+
+@pytest.mark.parametrize("name", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_raft_update_graph_matches_eager(card, name, b):
+    """Inference replays the update block's graph; its flows are the eager
+    block's bit for bit (the same kernels on the same values), and kernel
+    5 still launches once an iteration, outside the graph."""
+    model = _graph_model(name)
+    ref, cur = _graph_images(b)
+    profiling.enable()
+    before = lookup_correlation_cuda.launches
+    got = [model(ref, cur) for _ in range(2)]
+    assert lookup_correlation_cuda.launches == before + 24
+    captures = profiling.snapshot().counter("raft.update_graph.captures")
+    want = _eager(model, ref, cur)
+    assert len(model.UpdateBlock_0._graphs.graphs) == captures == 1
+    for flows in got:
+        assert flows.shape == want.shape and torch.equal(flows, want)
+
+
+def test_raft_update_graph_per_signature_and_counters(card):
+    """A call of another shape captures a second graph; a shape seen before
+    replays its own. The counters read one capture a signature and one
+    replay an update; training runs eagerly and counts neither."""
+    model = _graph_model("bfloat16")
+    iters = model.cfg.max_iterations
+    profiling.enable()
+    for b in (1, 2, 1):
+        model(*_graph_images(b))
+    assert len(model.UpdateBlock_0._graphs.graphs) == 2
+    model(*_graph_images(1), train=True)
+    snap = profiling.snapshot()
+    assert snap.counter("raft.update_graph.captures") == 2
+    assert snap.counter("raft.update_graph.replays") == 3 * iters
+    assert snap.select("raft.update").sum() == 4 * iters
+    assert snap.counters["raft.update_graph.replays"] == {
+        0: iters, 1: iters, 2: iters}
+    # At most four graphs: a fifth signature releases the least recent.
+    block = model.UpdateBlock_0
+    keys = list(block._graphs.graphs)
+    for b in (3, 4, 5):
+        model(*_graph_images(b, h=32, w=48))
+    assert len(block._graphs.graphs) == 4
+    assert keys[0] not in block._graphs.graphs and (
+        keys[1] in block._graphs.graphs)
+
+
+def test_raft_update_graph_outputs_held_across_calls(card):
+    """A caller of the block itself (``raft_bf16_eval.update_loop``) gets
+    outputs that the next call does not overwrite, and they are the eager
+    block's."""
+    cfg = GRAPH_RAFT["bfloat16"]
+    torch.manual_seed(33)
+    block = raft.UpdateBlock(cfg).to(card).to(
+        memory_format=torch.channels_last).eval()
+    g = torch.Generator(device=card).manual_seed(34)
+    k = cfg.correlation_pyramid_levels * (2 * cfg.correlation_radius + 1) ** 2
+    inputs = [tuple(torch.randn((2, 8, 12, c), generator=g, device=card
+                                ).to(cfg.dtype)
+                    for c in (cfg.hidden_channels, cfg.context_channels, k,
+                              2)) for _ in range(2)]
+    with torch.inference_mode(), raft.full_float32():
+        first = block(*inputs[0])
+        kept = [t.clone() for t in first]
+        second = block(*inputs[1])
+    with raft.full_float32():
+        want = [block._body(*x) for x in inputs]
+    assert len(block._graphs.graphs) == 1
+    for got, held, eager in zip(first, kept, want[0]):
+        assert torch.equal(got, held) and torch.equal(got, eager.detach())
+    for got, eager in zip(second, want[1]):
+        assert torch.equal(got, eager.detach())
+    assert not torch.equal(first[1], second[1])
+
+
 def test_raft_lookup_inputs_the_kernel_cannot_take_raise(card):
     f0, pyr, locs = lookup_inputs(card, 23, 1, 8, 8, 8, 2, spread=1.0)
     before = lookup_correlation_cuda.launches
