@@ -53,7 +53,18 @@ Phases (any failed check raises, so the exit code is non-zero):
      kernel on the seeded noisy locations and on the locations of the
      driven call's last iteration (with the share of tiles it staged in
      shared memory), of its plain version, the materialised route, the encoders, one
-     update iteration and whole calls in float32 and bfloat16.
+     update iteration and whole calls in float32 and bfloat16. Then (5d)
+     CoTracker2's correlation: the kernel in border mode against its plain
+     version at the online benchmark cell's shape (8 frames x 50x50
+     tracks, 96x128 maps, C=128, 4 levels, radius 3) on noisy grid
+     locations and on locations off the map; one ``CoTracker2Online``
+     window at the published widths on 8 rendered 384x512 RGB frames with
+     a 50x50 grid of queries, in float32 and bfloat16, the launch count
+     set to 0 just before and read just after (4 launches), against the
+     plain float32 reference (``tests/cotracker2_reference.py``) run from
+     the clip's start; the border kernel on that window's last lookup
+     (against its plain version, its staging, its time, bound, plain time
+     and phase clocks) and the bfloat16 step's time.
   6. The slice's other paths on the card, each checked against the same
      path on the CPU and timed per call (CUDA events, warm-up first, median
      of >= 20 runs) with a profiler window for the device's idle share:
@@ -256,6 +267,13 @@ RAFT_ROUTE_TOL = 5e-3   # px
 # bfloat16 against float32 flow, px: loose, the weights are random.
 RAFT_BF16_MEDIAN, RAFT_BF16_P99 = 0.25, 1.5
 RAFT_CPU_TOL = 1e-3     # px, compact model on the card against the CPU
+# Phase 5d. CoTracker2's online window at the published widths: 8 frames of
+# 384x512 and a 50x50 grid of queries, as the benchmark's online cell.
+COT_H, COT_W, COT_FRAMES, COT_GRID = 384, 512, 8, 50
+# The port's window against the plain reference, mean gaps in px and in the
+# visibility logits: float32 differs by the order of its sums (~1e-4 px);
+# bfloat16 by its precision (0.06-0.08 px in the benchmark's windows).
+COT_F32_TOL, COT_BF16_TOL = 1e-3, 0.2
 # Phase 6. The BRIEF pipeline (bench.py's w_brief_match): 300 corners, a
 # Hamming threshold of 60 and a 50 px gate; the JAX package matches 54 and
 # 282 features at the two responses on this pair.
@@ -772,13 +790,13 @@ def scattered_locations(locs):
     return locs
 
 
-def staged_line(label, f0, pyr, locs, radius):
+def staged_line(label, f0, pyr, locs, radius, padding="zeros"):
     """Print and return the host mirror of the kernel's staging rule
     (``staged_share``) on these inputs."""
     from feature_tracker_tpu_torch.ops.cuda_raft_lookup import staged_share
 
     share = staged_share(locs, [p.shape[1:3] for p in pyr], radius,
-                         f0.shape[-1])
+                         f0.shape[-1], padding)
     copied = 4 * f0.shape[-1] * share["staged_pixels"] + 4 * f0.numel() * len(
         pyr) * share["tiles"]
     print(f"[staged] {label}: {share['tiles']:.4f} of (tile, level) pairs, "
@@ -796,28 +814,28 @@ class LookupRecorder:
     def __init__(self):
         self.last = None
 
-    def __call__(self, fmap0, fpyr, locs, radius):
+    def __call__(self, fmap0, fpyr, locs, radius, padding="zeros"):
         from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
             lookup_correlation_cuda,
         )
         self.last = (fmap0, list(fpyr), locs)
-        return lookup_correlation_cuda(fmap0, fpyr, locs, radius)
+        return lookup_correlation_cuda(fmap0, fpyr, locs, radius, padding)
 
 
-def compare_lookup(label, f0, pyr, locs, radius):
+def compare_lookup(label, f0, pyr, locs, radius, padding="zeros"):
     """The lookup kernel against its plain version on the same card
-    inputs. Returns max |kernel - plain|."""
+    inputs, in ``padding`` mode. Returns max |kernel - plain|."""
     from feature_tracker_tpu_torch.models.raft import lookup_correlation_otf
     from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
         lookup_correlation_cuda,
     )
 
     before = lookup_correlation_cuda.launches
-    got = lookup_correlation_cuda(f0, pyr, locs, radius)
+    got = lookup_correlation_cuda(f0, pyr, locs, radius, padding)
     torch.cuda.synchronize()
     check(lookup_correlation_cuda.launches == before + 1,
           f"{label}: the wrapper did not launch the kernel")
-    want = lookup_correlation_otf(f0, pyr, locs, radius)
+    want = lookup_correlation_otf(f0, pyr, locs, radius, padding)
     k = 2 * radius + 1
     check(got.shape == want.shape
           == tuple(f0.shape[:3]) + (len(pyr) * k * k,),
@@ -826,7 +844,10 @@ def compare_lookup(label, f0, pyr, locs, radius):
     diff = (got - want).abs()
     err = float(diff.max())
     over = int((diff > LOOKUP_TOL * (1 + want.abs())).sum())
-    runaway = ~torch.isfinite(locs).all(-1) | (locs.abs() > 1e8).any(-1)
+    # Border mode clamps a finite location, however far, into the map.
+    runaway = ~torch.isfinite(locs).all(-1)
+    if padding == "zeros":
+        runaway |= (locs.abs() > 1e8).any(-1)
     print(f"[compare] {label}: max|kernel - plain|={err:.3g} on values up "
           f"to {float(want.abs().max()):.3g}; {over} of {diff.numel()} over "
           f"{LOOKUP_TOL} * (1 + |plain|); {int(runaway.sum())} runaway "
@@ -837,11 +858,13 @@ def compare_lookup(label, f0, pyr, locs, radius):
     return err
 
 
-def lookup_work(f0, pyr, locs, radius):
+def lookup_work(f0, pyr, locs, radius, padding="zeros"):
     """(bytes, FLOPs) of one lookup on these inputs: fmap0, every level and
     the locations read once, the output written once; the scaling of
     fmap0; a dot product over C for every grid pixel that lies inside its
-    map (a pixel outside costs nothing, a runaway location has none); the
+    map (a pixel outside costs nothing, a runaway location has none; in
+    border mode the grid's centre is first clamped into ``[-r, w_l - 1 +
+    r] x [-r, h_l - 1 + r]``, so only a NaN or infinite one has none); the
     four-tap blend of every output value."""
     b, h, w, c = f0.shape
     k = 2 * radius + 1
@@ -850,8 +873,15 @@ def lookup_work(f0, pyr, locs, radius):
                   + out_n)
     dots = 0
     for lvl, p in enumerate(pyr):
-        corner = torch.floor(locs.double() / 2 ** lvl) - radius
-        ok = torch.isfinite(corner).all(-1) & (corner.abs() < 2 ** 30).all(-1)
+        centre = locs.double() / 2 ** lvl
+        ok = torch.isfinite(centre).all(-1)
+        if padding == "border":
+            hi = centre.new_tensor([p.shape[2] - 1 + radius,
+                                    p.shape[1] - 1 + radius])
+            centre = torch.minimum(torch.maximum(
+                centre, centre.new_tensor([-radius, -radius])), hi)
+        corner = torch.floor(centre) - radius
+        ok &= (corner.abs() < 2 ** 30).all(-1)
         corner = corner[ok]
         nx = (torch.clamp(corner[:, 0] + k + 1, max=p.shape[2])
               - torch.clamp(corner[:, 0], min=0)).clamp(min=0)
@@ -1200,6 +1230,164 @@ def raft_phases(dev, card):
         "ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
     }
+
+
+def cotracker2_lookup_inputs(dev, seed, off_map):
+    """Track features, pooled pyramid and locations on ``dev`` at the
+    CoTracker2 cell's lookup shape (``COT_FRAMES`` frames of a
+    ``COT_GRID`` x ``COT_GRID`` grid of tracks, 128 channels, maps at a
+    quarter of ``COT_H`` x ``COT_W`` in 4 levels) from a numpy seed: the
+    grid of queries in feature pixels plus N(0, 2 px); with ``off_map``,
+    uniform from 20 px before the map to 20 px beyond it, with NaN,
+    infinite and 1e9 entries."""
+    from feature_tracker_tpu_torch.models.raft import pool_feature_pyramid
+
+    rng = np.random.default_rng(seed)
+    s, g, h, w = COT_FRAMES, COT_GRID, COT_H // 4, COT_W // 4
+    f0 = rng.normal(0, 1, (s, g, g, 128)).astype(np.float32)
+    f1 = rng.normal(0, 1, (s, h, w, 128)).astype(np.float32)
+    if off_map:
+        locs = np.stack([rng.uniform(-20, w + 20, (s, g, g)),
+                         rng.uniform(-20, h + 20, (s, g, g))], -1)
+        locs[0, 0, :5, 0] = [np.nan, np.inf, -np.inf, 1e9, -1e9]
+        locs[-1, -1, -3:, 1] = [np.nan, 1e9, np.inf]
+    else:
+        grid = cotracker2_queries()[:, 1:].reshape(g, g, 2) / 4
+        locs = grid[None] + rng.normal(0, 2.0, (s, g, g, 2))
+    f0, f1, locs = (torch.from_numpy(a.astype(np.float32)).to(dev)
+                    for a in (f0, f1, locs))
+    return f0, [p.contiguous() for p in pool_feature_pyramid(f1, 4)], locs
+
+
+def cotracker2_queries():
+    """co-tracker's ``get_points_on_a_grid(COT_GRID, (COT_H, COT_W))`` on
+    frame 0: ``[COT_GRID^2, 3]`` (t, x, y), a margin of ``COT_W / 64``."""
+    margin = COT_W / 64
+    gy, gx = np.meshgrid(np.linspace(margin, COT_H - margin, COT_GRID),
+                         np.linspace(margin, COT_W - margin, COT_GRID),
+                         indexing="ij")
+    return np.stack([np.zeros(gx.size), gx.ravel(), gy.ravel()],
+                    -1).astype(np.float32)
+
+
+def cotracker2_phases(dev, card):
+    """Phase 5d (see the module docstring). Returns kernel 5's border-mode
+    entries for the kernels line."""
+    import dataclasses
+
+    from cotracker2_reference import CoTracker2Reference, draw_weights
+    from synthetic import Texture
+
+    from feature_tracker_tpu_torch.models import raft
+    from feature_tracker_tpu_torch.models.cotracker2 import (
+        CoTracker2,
+        CoTracker2Config,
+        CoTracker2Online,
+    )
+    from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
+        TILE,
+        lookup_correlation_cuda,
+        lookup_phase_clocks,
+    )
+
+    cfg = CoTracker2Config()
+    radius = cfg.corr_radius
+    shape = (f"B={COT_FRAMES} {COT_GRID}x{COT_GRID} C={cfg.latent_dim} maps "
+             f"{COT_H // 4}x{COT_W // 4} L={cfg.corr_levels} r={radius}")
+    errs = [compare_lookup(f"border lookup {shape}, grid + N(0, 2 px)",
+                           *cotracker2_lookup_inputs(dev, 60, False), radius,
+                           "border"),
+            compare_lookup(f"border lookup {shape}, locations off the map",
+                           *cotracker2_lookup_inputs(dev, 61, True), radius,
+                           "border")]
+
+    # One online window at the published widths, float32 and bfloat16,
+    # against the plain reference from the clip's start (the reference
+    # samples the query points' features itself).
+    texs = [Texture(200 + ch, n_waves=16, min_period=5.0, max_period=30.0)
+            for ch in range(3)]
+    video = np.stack([np.stack([t.render(COT_H, COT_W, warp=lambda x, y, k=k: (
+        x - 2.0 * k, y + 1.0 * k)) for t in texs], -1)
+        for k in range(COT_FRAMES)]).round().clip(0, 255).astype(np.uint8)
+    queries = cotracker2_queries()
+    half = cfg.window_len // 2
+    ref_cfg = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+               if f.name != "dtype"}
+    weights = draw_weights(ref_cfg, 62, dev)
+    reference = CoTracker2Reference(weights, ref_cfg, dev)
+    (want, want_vis), _ = reference.online_step(
+        reference.online_start(queries, video[:half]), video[half:])
+    for dtype, limit in ((torch.float32, COT_F32_TOL),
+                         (torch.bfloat16, COT_BF16_TOL)):
+        model = CoTracker2(dataclasses.replace(cfg, dtype=dtype), device=dev)
+        model.load_state_dict(weights)
+        online = CoTracker2Online(model)
+        check(online.step(video[:half], queries) is None,
+              "cotracker2: a clip's first call returned tracks")
+        recorder = LookupRecorder()
+        model.lookup_fn = recorder
+        lookup_correlation_cuda.launches = 0
+        tracks, vis = online.step(video[half:])
+        torch.cuda.synchronize()
+        launches = lookup_correlation_cuda.launches
+        check(launches == cfg.iterations,
+              f"cotracker2: {launches} lookup launches in a window of "
+              f"{cfg.iterations} iterations")
+        check(tracks.shape == want.shape and bool(torch.isfinite(tracks).all())
+              and bool(torch.isfinite(vis).all()),
+              f"cotracker2: output {tuple(tracks.shape)}")
+        gap = torch.linalg.vector_norm(tracks - want, dim=-1)
+        vis_gap = float((vis - want_vis).abs().mean())
+        moved = (tracks[-1] - tracks.new_tensor(queries[:, 1:])).norm(dim=-1)
+        print(f"[cotracker2] {dtype} online window at the published widths, "
+              f"{COT_W}x{COT_H}, {len(queries)} tracks: {launches} lookup "
+              f"launches in border mode; against the float32 reference "
+              f"|dtrack| mean={float(gap.mean()):.3g} p99="
+              f"{float(torch.quantile(gap.flatten(), 0.99)):.3g} max="
+              f"{float(gap.max()):.3g} px, |dvis| mean={vis_gap:.3g} "
+              f"(limits {limit} px and {limit} mean); the last frame's "
+              f"tracks {float(moved.mean()):.3f} px from their queries")
+        check(float(gap.mean()) <= limit and vis_gap <= limit,
+              f"cotracker2 {dtype}: mean gaps {float(gap.mean())} px, "
+              f"{vis_gap} in the logits")
+    step_ms = cuda_ms(lambda: online.step(video[half:]), repeats=10,
+                      warmup=2)
+    print(f"[time] cotracker2 bfloat16 online step (encoder over "
+          f"{cfg.window_len} frames, one window of {cfg.iterations} "
+          f"iterations): {step_ms:.4f} ms")
+
+    # Kernel 5 in border mode on the bfloat16 window's last lookup: the
+    # online path's own locations.
+    f0, pyr, locs = recorder.last
+    errs.append(compare_lookup("border lookup on the online window's last "
+                               "iteration", f0, pyr, locs, radius, "border"))
+    share = staged_line("border lookup on the online window's last "
+                        "iteration", f0, pyr, locs, radius, "border")
+    check(share["queries"] >= 0.9,
+          f"cotracker2: only {share['queries']} of the queries were staged")
+    kernel_ms = cuda_ms(lambda: lookup_correlation_cuda(
+        f0, pyr, locs, radius, "border"), batch=10)
+    dev_ms = device_ms(lambda: lookup_correlation_cuda(
+        f0, pyr, locs, radius, "border"), "raft_lookup_kernel", kernel_ms)
+    plain_ms = cuda_ms(lambda: raft.lookup_correlation_otf(
+        f0, pyr, locs, radius, "border"), repeats=10, warmup=1)
+    nbytes, flops = lookup_work(f0, pyr, locs, radius, "border")
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"[time] raft lookup kernel in border mode {shape}, the online "
+          f"window's last iteration: {kernel_ms:.4f} ms per launch back to "
+          f"back, {dev_ms:.4f} ms device time per launch (profiler); bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {flops} FLOP); "
+          f"plain PyTorch version {plain_ms:.4f} ms")
+    tiles = -(-COT_GRID // TILE)
+    blocks = COT_FRAMES * tiles * tiles * cfg.corr_levels
+    print_phases("raft lookup kernel in border mode, the online window's "
+                 "last iteration",
+                 lookup_phase_clocks(f0, pyr, locs, radius, "border"),
+                 blocks, "block")
+    print(f"[time] card: {card}")
+    return {"border_launches": launches, "border_max_abs_err": max(errs),
+            "border_ms": dev_ms, "border_plain_ms": plain_ms,
+            "border_bound_ms": bound_ms, "border_bound_by": bound_by}
 
 
 def stage_done(label, since):
@@ -4221,7 +4409,9 @@ def main() -> int:
     profile_window("front end per frame",
                    lambda: fe.process_frame(next(more)), calls=10)
 
-    kernels.append(raft_phases(dev, card))
+    lookup = raft_phases(dev, card)
+    lookup.update(cotracker2_phases(dev, card))
+    kernels.append(lookup)
     slice_paths(dev, card, frames)
     model_paths(dev, card)
     sharded = parallel_paths(dev, card, rp, cp, uv, opts)

@@ -12,7 +12,10 @@
 // correlation <f0[n] / sqrt(C), f1_l> sampled bilinearly at the (2r+1)^2
 // integer offsets around (x, y) = locations[n] / 2^l, each of the four taps
 // contributing 0 where it leaves the map. Output [B, H, W, L (2r+1)^2],
-// level-major, then dy-major, dx-minor.
+// level-major, then dy-major, dx-minor. In border mode (padding 1,
+// CoTracker's grid_sample(padding_mode="border", align_corners=True)) each
+// sample position is first clamped into [0, w_l - 1] x [0, h_l - 1], so that
+// no tap with weight leaves the map.
 //
 // The offsets are integers, so all samples of one query at one level share
 // one fractional part (fx, fy): they are four-tap blends, with four constant
@@ -20,6 +23,15 @@
 // floor(x, y) - r. A grid pixel outside the map has dot product 0, which is
 // the per-tap zero padding. A query whose location is NaN, infinite or
 // beyond +-2^30 has no valid tap and writes zeros.
+//
+// Border mode keeps the one grid a query and level: the location / 2^l is
+// clamped into [-r, w_l - 1 + r] x [-r, h_l - 1 + r] first (every window
+// sample beyond that range clamps to the map's edge either way), so the grid
+// always meets the map, and a sample's clamped position lies on the grid:
+// its local coordinate fx + dx is clamped into [-x0, w_l - 1 - x0] (x0 the
+// grid corner), and the blend takes the four grid pixels around it. Only a
+// NaN or infinite location writes zeros there. Zeros mode is compiled
+// apart (a template argument), as it was.
 //
 // Bound on an H100 at the serving shape (B=4, 55x128 queries, C=128, three
 // levels, r=3), counting only the grid pixels that lie inside their maps:
@@ -166,9 +178,40 @@ __device__ __forceinline__ float blend(const float* dots, int gw, int k, int o,
   return w00 * d[0] + w01 * d[1] + w10 * d[gw] + w11 * d[gw + 1];
 }
 
+// Border mode's blend: sample o's position, clamped into the map, on the
+// grid of corner (x0, y0); the map's first and last pixels lie at local
+// -x0 and w - 1 - x0 (and likewise in y).
+__device__ __forceinline__ float blend_border(const float* dots, int gw, int k,
+                                              int o, float fx, float fy,
+                                              int x0, int y0, int h, int w) {
+  const int dy = o / k;
+  const float sx = fminf(fmaxf(fx + (float)(o - dy * k), (float)(-x0)),
+                         (float)(w - 1 - x0));
+  const float sy = fminf(fmaxf(fy + (float)dy, (float)(-y0)),
+                         (float)(h - 1 - y0));
+  const float ixf = floorf(sx), iyf = floorf(sy);
+  const float tx = sx - ixf, ty = sy - iyf;
+  const float* d = dots + (int)iyf * gw + (int)ixf;
+  const float w00 = (1.0f - ty) * (1.0f - tx), w01 = (1.0f - ty) * tx;
+  const float w10 = ty * (1.0f - tx), w11 = ty * tx;
+  return w00 * d[0] + w01 * d[1] + w10 * d[gw] + w11 * d[gw + 1];
+}
+
+// Border mode's centre: the location at this level clamped into
+// [-r, w - 1 + r] x [-r, h - 1 + r]; NaN stays NaN (and so has no grid).
+__device__ __forceinline__ void clamp_centre(float& cx, float& cy, int radius,
+                                             int h, int w) {
+  if (isfinite(cx) && isfinite(cy)) {
+    cx = fminf(fmaxf(cx, (float)-radius), (float)(w - 1 + radius));
+    cy = fminf(fmaxf(cy, (float)-radius), (float)(h - 1 + radius));
+  } else {
+    cx = cy = __int_as_float(0x7fffffff);
+  }
+}
+
 // One query at one level by one warp, reading the grid pixels from global
 // memory; `dots` is the warp's (2r+2)^2 floats of shared memory.
-template <int VEC>
+template <int VEC, bool BORDER>
 __device__ void lookup_query(const float* __restrict__ f1, int h, int w,
                              const float* __restrict__ f0, float lx, float ly,
                              float inv, float* __restrict__ out_l,
@@ -177,7 +220,8 @@ __device__ void lookup_query(const float* __restrict__ f1, int h, int w,
   const int k = 2 * radius + 1;   // window side
   const int gw = k + 1;           // grid side
   const int grid = gw * gw;
-  const float cx = lx * inv, cy = ly * inv;
+  float cx = lx * inv, cy = ly * inv;
+  if (BORDER) clamp_centre(cx, cy, radius, h, w);
   const float x0f = floorf(cx), y0f = floorf(cy);
   // Decided on the floats: NaN and infinities compare false.
   if (!(fabsf(x0f) <= kMaxCorner && fabsf(y0f) <= kMaxCorner)) {
@@ -226,7 +270,8 @@ __device__ void lookup_query(const float* __restrict__ f1, int h, int w,
   }
   __syncwarp();
   for (int o = lane; o < k * k; o += 32)
-    out_l[o] = blend(dots, gw, k, o, fx, fy);
+    out_l[o] = BORDER ? blend_border(dots, gw, k, o, fx, fy, x0, y0, h, w)
+                      : blend(dots, gw, k, o, fx, fy);
   __syncwarp();
 }
 
@@ -317,7 +362,7 @@ __device__ __forceinline__ int grid_row(int lane, int s) {
 
 // A tile whose box is staged at `ch` channels a chunk: the dot products of
 // all its queries from shared memory, then the blend. Whole block.
-template <int GW>
+template <int GW, bool BORDER>
 __device__ __forceinline__ void lookup_tile_staged(
     float* smem, const TileQueries& q, const float* __restrict__ fmap0,
     const float* __restrict__ f1, int h, int w, int channels, int radius,
@@ -390,16 +435,23 @@ __device__ __forceinline__ void lookup_tile_staged(
     if (q.n[s] < 0) continue;
     float* out_l = out + ((size_t)q.n[s] * levels + lvl) * kk;
     // A query without work: zeros (its fx, fy may be unset).
-    out_l[o] = q.live[s] ? blend(dots + s * GW * GW, GW, k, o, q.fx[s],
-                                 q.fy[s])
-                         : 0.0f;
+    if (BORDER)
+      out_l[o] = q.live[s] ? blend_border(dots + s * GW * GW, GW, k, o,
+                                          q.fx[s], q.fy[s], q.x0[s], q.y0[s],
+                                          h, w)
+                           : 0.0f;
+    else
+      out_l[o] = q.live[s] ? blend(dots + s * GW * GW, GW, k, o, q.fx[s],
+                                   q.fy[s])
+                           : 0.0f;
   }
   FTK_MARK(phases, 4, first);
 }
 
 // GW: the grid side 2r+2 when the staged path is compiled for this radius
-// (and VEC is 4), else 0: every tile then takes the per-query path.
-template <int GW, int VEC>
+// (and VEC is 4), else 0: every tile then takes the per-query path. BORDER:
+// border mode.
+template <int GW, int VEC, bool BORDER>
 __global__ void __launch_bounds__(kThreads, blocks_per_sm(GW))
     raft_lookup_kernel(FeaturePyramid pyr, const float* __restrict__ fmap0,
                        const float* __restrict__ locations,
@@ -442,8 +494,9 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(GW))
     q.n[slot] = n;
     int live = 0;
     if (GW > 0 && exists) {
-      const float cx = locations[2 * (size_t)n] * inv;
-      const float cy = locations[2 * (size_t)n + 1] * inv;
+      float cx = locations[2 * (size_t)n] * inv;
+      float cy = locations[2 * (size_t)n + 1] * inv;
+      if (BORDER) clamp_centre(cx, cy, radius, h, w);
       const float x0f = floorf(cx), y0f = floorf(cy);
       // Decided on the floats: NaN and infinities compare false.
       if (fabsf(x0f) <= kMaxCorner && fabsf(y0f) <= kMaxCorner) {
@@ -479,8 +532,9 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(GW))
     const int ch = chunk;
     FTK_MARK(phases, 0, threadIdx.x == 0);
     if (ch > 0) {
-      lookup_tile_staged<GW>(smem, q, fmap0, f1, h, w, channels, radius, scale,
-                             ch, any_live, npix, out, pyr.levels, lvl, phases);
+      lookup_tile_staged<GW, BORDER>(smem, q, fmap0, f1, h, w, channels,
+                                     radius, scale, ch, any_live, npix, out,
+                                     pyr.levels, lvl, phases);
       return;
     }
   }
@@ -491,20 +545,21 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(GW))
   for (int slot = warp; slot < kTileQueries; slot += warps) {
     const int n = q.n[slot];
     if (n < 0) continue;
-    lookup_query<VEC>(f1, h, w, fmap0 + (size_t)n * channels,
-                      locations[2 * (size_t)n], locations[2 * (size_t)n + 1],
-                      inv, out + ((size_t)n * pyr.levels + lvl) * k * k, dots,
-                      channels, radius, scale, lane);
+    lookup_query<VEC, BORDER>(
+        f1, h, w, fmap0 + (size_t)n * channels, locations[2 * (size_t)n],
+        locations[2 * (size_t)n + 1], inv,
+        out + ((size_t)n * pyr.levels + lvl) * k * k, dots, channels, radius,
+        scale, lane);
   }
   FTK_MARK(phases, 5, threadIdx.x == 0);
 }
 
-template <int GW, int VEC>
+template <int GW, int VEC, bool BORDER>
 cudaError_t launch(const FeaturePyramid& pyr, const float* fmap0,
                    const float* locations, float* out, int batch, int height,
                    int width, int channels, int radius, float scale,
                    cudaStream_t stream, int* blocks_per_sm) {
-  auto kernel = raft_lookup_kernel<GW, VEC>;
+  auto kernel = raft_lookup_kernel<GW, VEC, BORDER>;
   const size_t per_warp =
       sizeof(float) * (size_t)(2 * radius + 2) * (2 * radius + 2);
   int warps;
@@ -536,23 +591,44 @@ cudaError_t launch(const FeaturePyramid& pyr, const float* fmap0,
   return cudaGetLastError();
 }
 
+// The kernel for this radius and alignment: staged at radius 3 and 4.
+template <bool BORDER>
+cudaError_t dispatch(const FeaturePyramid& pyr, const float* f0,
+                     const float* loc, float* out, int batch, int height,
+                     int width, int channels, int radius, bool vec4,
+                     float scale, cudaStream_t s, int* blocks_per_sm) {
+  if (vec4 && radius == 3)
+    return launch<8, 4, BORDER>(pyr, f0, loc, out, batch, height, width,
+                                channels, radius, scale, s, blocks_per_sm);
+  if (vec4 && radius == 4)
+    return launch<10, 4, BORDER>(pyr, f0, loc, out, batch, height, width,
+                                 channels, radius, scale, s, blocks_per_sm);
+  if (vec4)
+    return launch<0, 4, BORDER>(pyr, f0, loc, out, batch, height, width,
+                                channels, radius, scale, s, blocks_per_sm);
+  return launch<0, 1, BORDER>(pyr, f0, loc, out, batch, height, width,
+                              channels, radius, scale, s, blocks_per_sm);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success). The level pointer and size arrays live on the host; fmap0
-// [B, H, W, C], the levels [B, h_l, w_l, C], locations [B, H, W, 2] and out
-// [B, H, W, L (2r+1)^2] are contiguous float32 on the device. With
+// success); `padding` is 0 (zeros) or 1 (border). The level pointer and size
+// arrays live on the host; fmap0 [B, H, W, C], the levels [B, h_l, w_l, C],
+// locations [B, H, W, 2] and out [B, H, W, L (2r+1)^2] are contiguous
+// float32 on the device. With
 // `blocks_per_sm` not null nothing is launched: it receives the number of
 // blocks of this configuration's kernel that one SM holds at once.
 int ftk_raft_lookup(const void* const* level_ptrs, const int* heights,
                     const int* widths, int levels, const void* fmap0,
                     const void* locations, void* out, int batch, int height,
-                    int width, int channels, int radius, float scale,
-                    void* stream, int* blocks_per_sm) {
+                    int width, int channels, int radius, int padding,
+                    float scale, void* stream, int* blocks_per_sm) {
   if (levels < 1 || levels > FTK_MAX_LEVELS || batch < 0 || height < 0 ||
-      width < 0 || channels < 1 || radius < 0 || radius > 1024)
+      width < 0 || channels < 1 || radius < 0 || radius > 1024 ||
+      (padding != 0 && padding != 1))
     return (int)cudaErrorInvalidValue;
   const long long n = (long long)batch * height * width;
   if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -578,20 +654,12 @@ int ftk_raft_lookup(const void* const* level_ptrs, const int* heights,
   const float* f0 = (const float*)fmap0;
   const float* loc = (const float*)locations;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (vec4 && radius == 3)
-    e = launch<8, 4>(pyr, f0, loc, (float*)out, batch, height, width, channels,
-                     radius, scale, s, blocks_per_sm);
-  else if (vec4 && radius == 4)
-    e = launch<10, 4>(pyr, f0, loc, (float*)out, batch, height, width,
-                      channels, radius, scale, s, blocks_per_sm);
-  else if (vec4)
-    e = launch<0, 4>(pyr, f0, loc, (float*)out, batch, height, width, channels,
-                     radius, scale, s, blocks_per_sm);
-  else
-    e = launch<0, 1>(pyr, f0, loc, (float*)out, batch, height, width, channels,
-                     radius, scale, s, blocks_per_sm);
-  return (int)e;
+  return padding ? (int)dispatch<true>(pyr, f0, loc, (float*)out, batch,
+                                       height, width, channels, radius, vec4,
+                                       scale, s, blocks_per_sm)
+                 : (int)dispatch<false>(pyr, f0, loc, (float*)out, batch,
+                                        height, width, channels, radius, vec4,
+                                        scale, s, blocks_per_sm);
 }
 
 }  // extern "C"

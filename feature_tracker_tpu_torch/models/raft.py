@@ -322,13 +322,29 @@ def _bilinear_taps(pos, h: int, w: int):
     return taps
 
 
-def lookup_correlation_otf(fmap0, fmap1_pyramid, locations, radius: int):
+def _clamp_to_map(pos, h: int, w: int):
+    """``pos [..., 2]`` (x, y) clamped into ``[0, w - 1] x [0, h - 1]``; a
+    position with a NaN or infinite coordinate becomes NaN (no valid tap)."""
+    hi = torch.tensor([w - 1, h - 1], dtype=pos.dtype, device=pos.device)
+    clamped = torch.minimum(torch.maximum(pos, torch.zeros_like(hi)), hi)
+    finite = torch.isfinite(pos).all(-1, keepdim=True)
+    return torch.where(finite, clamped, torch.full_like(pos, float("nan")))
+
+
+def lookup_correlation_otf(fmap0, fmap1_pyramid, locations, radius: int,
+                           padding: str = "zeros"):
     """Memory-light correlation lookup: the windowed correlations computed
     on the fly instead of sampled from a precomputed all-pairs volume.
     Numerically equal to compute_correlation_pyramid + lookup_correlation,
     because pooling commutes with the dot product and both use zero-padded
     bilinear taps. This is the plain version of the CUDA kernel behind
     ``lookup_correlation_cuda``.
+
+    ``padding="border"`` (CoTracker's ``grid_sample(padding_mode="border",
+    align_corners=True)``) clamps every sample position into
+    ``[0, w_l - 1] x [0, h_l - 1]`` before its four taps, so that no tap
+    with weight leaves the map; a NaN or infinite location still gives
+    zeros.
 
     Args:
       fmap0: ``[B, H, W, C]``; fmap1_pyramid: list of ``[B, h, w, C]``;
@@ -337,6 +353,9 @@ def lookup_correlation_otf(fmap0, fmap1_pyramid, locations, radius: int):
     Returns:
       ``[B, H, W, L*(2r+1)^2]``, level-major, then dy-major, dx-minor.
     """
+    if padding not in ("zeros", "border"):
+        raise ValueError(f"padding must be 'zeros' or 'border', got "
+                         f"{padding!r}")
     b, h, w, c = fmap0.shape
     k = 2 * radius + 1
     f0 = fmap0.reshape(b, h * w, c) * correlation_scale(c)
@@ -349,7 +368,10 @@ def lookup_correlation_otf(fmap0, fmap1_pyramid, locations, radius: int):
         corr = []
         for off in offsets:
             total = 0.0
-            for yi, xi, wgt, ok in _bilinear_taps(base + off, f1.shape[1],
+            pos = base + off
+            if padding == "border":
+                pos = _clamp_to_map(pos, f1.shape[1], f1.shape[2])
+            for yi, xi, wgt, ok in _bilinear_taps(pos, f1.shape[1],
                                                   f1.shape[2]):
                 rows = f1[batch, yi, xi]                      # [B, HW, C]
                 dot = (f0 * rows).sum(-1)

@@ -45,8 +45,10 @@ MAX_CORNER = 2.0 ** 30        # |floor(location / 2^l)| beyond: no valid tap
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-_LOOKUP_ARGTYPES = ([_VP] * 3 + [_INT] + [_VP] * 3 + [_INT] * 5
+_LOOKUP_ARGTYPES = ([_VP] * 3 + [_INT] + [_VP] * 3 + [_INT] * 6
                     + [_FLOAT, _VP, _VP])
+# The kernel's padding modes, by the int it takes.
+PADDINGS = {"zeros": 0, "border": 1}
 # The phases csrc/raft_lookup.cu marks (clocks of each block's first
 # thread), in its order.
 LOOKUP_PHASES = ("queries and box", "waiting for copies and the block",
@@ -74,7 +76,7 @@ def lookup_blocks_per_sm(radius: int = 3) -> int:
     blocks = ctypes.c_int(0)
     rc = lib.ftk_raft_lookup(
         ctypes.cast(ptr, _VP), ctypes.cast(one, _VP), ctypes.cast(one, _VP),
-        1, 0, 0, 0, 1, 1, 1, 4, radius, 1.0, 0,
+        1, 0, 0, 0, 1, 1, 1, 4, radius, 0, 1.0, 0,
         ctypes.cast(ctypes.pointer(blocks), _VP))
     raise_on_error(lib, "ftk_raft_lookup", rc)
     return blocks.value
@@ -87,12 +89,16 @@ def box_capacity(chunk: int) -> int:
     return STAGE_FLOATS // stride - TILE * TILE
 
 
-def staged_share(locations, level_shapes, radius: int, channels: int = 128):
+def staged_share(locations, level_shapes, radius: int, channels: int = 128,
+                 padding: str = "zeros"):
     """The kernel's staging rule on the host: which tiles it stages.
 
     For every tile of 8x8 queries and level the kernel takes the grid
     corners ``floor(location / 2^l) - r`` of the queries whose grid meets
-    the map (a NaN, infinite or beyond-2^30 location has no grid), and
+    the map (a NaN, infinite or beyond-2^30 location has no grid; with
+    ``padding="border"`` a finite ``location / 2^l`` is first clamped into
+    ``[-r, w_l - 1 + r] x [-r, h_l - 1 + r]``, so that its grid always
+    meets the map, and only a NaN or infinite one has none), and
     stages their bounding box, ``(max - min + 2r+2)`` a side with the row
     pitch made odd, when it holds at most ``box_capacity(4)`` pixels; the
     chunk is the largest of 32, 16, 8, 4 channels whose capacity holds the
@@ -128,7 +134,15 @@ def staged_share(locations, level_shapes, radius: int, channels: int = 128):
     out = {"tiles": 0.0, "queries": 0.0, "box_pixels": [], "chunks": [],
            "staged_pixels": 0}
     for lvl, (lh, lw) in enumerate(level_shapes):
-        corner = torch.floor(loc * (0.5 ** lvl))
+        scaled = loc * (0.5 ** lvl)
+        if padding == "border":
+            lo = torch.tensor([-radius, -radius], dtype=scaled.dtype)
+            hi = torch.tensor([lw - 1 + radius, lh - 1 + radius],
+                              dtype=scaled.dtype)
+            scaled = torch.where(torch.isfinite(scaled).all(-1, True),
+                                 torch.minimum(torch.maximum(scaled, lo), hi),
+                                 torch.full_like(scaled, float("nan")))
+        corner = torch.floor(scaled)
         ok = (corner.abs() <= MAX_CORNER).all(-1)      # NaN compares false
         corner = torch.where(ok[..., None], corner, 0.0).long() - radius
         live = (ok & (corner[..., 0] > -gw) & (corner[..., 0] < lw)
@@ -158,7 +172,8 @@ def staged_share(locations, level_shapes, radius: int, channels: int = 128):
     return out
 
 
-def lookup_correlation_cuda(fmap0, fmap1_pyramid, locations, radius: int):
+def lookup_correlation_cuda(fmap0, fmap1_pyramid, locations, radius: int,
+                            padding: str = "zeros"):
     """Windowed correlation lookup over all batch items, queries and levels
     in one kernel launch.
 
@@ -168,6 +183,9 @@ def lookup_correlation_cuda(fmap0, fmap1_pyramid, locations, radius: int):
         features (at most 8 levels).
       locations: ``[B, H, W, 2]`` float32 (x, y) lookup centres at level-0
         scale.
+      padding: ``"zeros"`` (RAFT's: a tap outside the map adds 0) or
+        ``"border"`` (CoTracker's: each sample position clamped into the
+        map first); see ``lookup_correlation_otf``.
 
     Returns ``[B, H, W, L*(2r+1)^2]`` float32 correlations (scaled by
     ``1/sqrt(C)``), ordered as ``lookup_correlation_otf``. CPU tensors take
@@ -179,10 +197,12 @@ def lookup_correlation_cuda(fmap0, fmap1_pyramid, locations, radius: int):
 
     where = "lookup_correlation_cuda"
     dev = fmap0.device
+    check(padding in PADDINGS, where,
+          f"padding must be one of {sorted(PADDINGS)}, got {padding!r}")
     if dev.type == "cpu":
         with span("raft_lookup.launch"):
             return lookup_correlation_otf(fmap0, fmap1_pyramid, locations,
-                                          radius)
+                                          radius, padding)
     check(dev.type == "cuda", where, f"unsupported device {dev}")
     levels = len(fmap1_pyramid)
     check(1 <= levels <= MAX_LEVELS, where,
@@ -203,20 +223,23 @@ def lookup_correlation_cuda(fmap0, fmap1_pyramid, locations, radius: int):
           "radius must be a non-negative int")
 
     out = _launch_lookup(load_lookup_library(), fmap0, fmap1_pyramid,
-                         locations, radius)
+                         locations, radius, padding)
     if out.numel():
         lookup_correlation_cuda.launches += 1
     return out
 
 
-def _launch_lookup(lib, fmap0, fmap1_pyramid, locations, radius: int):
+def _launch_lookup(lib, fmap0, fmap1_pyramid, locations, radius: int,
+                   padding: str = "zeros"):
     """Allocate the output and launch ``lib``'s kernel on checked inputs
     (nothing is launched for an empty output)."""
     with span("raft_lookup.launch"):
-        return _enqueue_lookup(lib, fmap0, fmap1_pyramid, locations, radius)
+        return _enqueue_lookup(lib, fmap0, fmap1_pyramid, locations, radius,
+                               padding)
 
 
-def _enqueue_lookup(lib, fmap0, fmap1_pyramid, locations, radius: int):
+def _enqueue_lookup(lib, fmap0, fmap1_pyramid, locations, radius: int,
+                    padding: str):
     dev = fmap0.device
     b, h, w, c = fmap0.shape
     levels = len(fmap1_pyramid)
@@ -233,13 +256,15 @@ def _enqueue_lookup(lib, fmap0, fmap1_pyramid, locations, radius: int):
             ctypes.cast(ptrs, _VP), ctypes.cast(heights, _VP),
             ctypes.cast(widths, _VP), levels, fmap0.data_ptr(),
             locations.data_ptr(), out.data_ptr(), b, h, w, c, radius,
-            correlation_scale(c), torch.cuda.current_stream(dev).cuda_stream,
+            PADDINGS[padding], correlation_scale(c),
+            torch.cuda.current_stream(dev).cuda_stream,
             None)
     raise_on_error(lib, "ftk_raft_lookup", rc)
     return out
 
 
-def lookup_phase_clocks(fmap0, fmap1_pyramid, locations, radius: int) -> dict:
+def lookup_phase_clocks(fmap0, fmap1_pyramid, locations, radius: int,
+                        padding: str = "zeros") -> dict:
     """Where the lookup kernel's time goes on these (valid, CUDA) inputs:
     one launch of its build with phase clocks (``csrc/klt_common.cuh``),
     then the shares of ``LOOKUP_PHASES`` in the clocks of the blocks' first
@@ -248,7 +273,7 @@ def lookup_phase_clocks(fmap0, fmap1_pyramid, locations, radius: int) -> dict:
     lib = bind_phase_clocks("ftk_raft_lookup_phases", "raft_lookup.cu",
                             "ftk_raft_lookup", _LOOKUP_ARGTYPES, fmad=True)
     read_phase_clocks(lib, LOOKUP_PHASES)
-    _launch_lookup(lib, fmap0, fmap1_pyramid, locations, radius)
+    _launch_lookup(lib, fmap0, fmap1_pyramid, locations, radius, padding)
     torch.cuda.synchronize(fmap0.device)
     return read_phase_clocks(lib, LOOKUP_PHASES)
 

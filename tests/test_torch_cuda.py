@@ -783,6 +783,134 @@ def test_raft_lookup_tile_staging_matches_plain_version(card, name):
         (got - want).abs().max())
 
 
+# Border mode (CoTracker's): every sample position clamped into the map.
+# Off-map, NaN, infinite and 1e9 locations (spread None); the staged path
+# at radius 3 and 4; the per-query path at radius 2, at C not a multiple of
+# 4 and where the windows scatter too far to stage.
+@pytest.mark.parametrize("name", ["off-map-r3", "off-map-r4", "r2", "c130",
+                                  "scattered", "smooth-c128"])
+def test_raft_lookup_border_mode_matches_plain_version(card, name):
+    off_map = name not in ("scattered", "smooth-c128")
+    if name == "scattered":
+        f0, pyr, locs = lookup_inputs(card, 41, 1, 56, 128, 32, 2,
+                                      spread=0.25)
+        locs, radius = scattered_locations(locs), 3
+    else:
+        args, radius, spread = {
+            "off-map-r3": ((42, 2, 13, 22, 96, 3), 3, None),
+            "off-map-r4": ((43, 1, 13, 22, 64, 2), 4, None),
+            "r2": ((44, 2, 9, 11, 32, 2), 2, None),
+            "c130": ((45, 1, 13, 22, 130, 2), 3, None),
+            "smooth-c128": ((46, 3, 24, 40, 128, 4), 3, 1.0)}[name]
+        f0, pyr, locs = lookup_inputs(card, *args, spread=spread)
+    before = lookup_correlation_cuda.launches
+    got = lookup_correlation_cuda(f0, pyr, locs, radius, "border")
+    torch.cuda.synchronize()
+    assert lookup_correlation_cuda.launches == before + 1
+    want = raft.lookup_correlation_otf(f0, pyr, locs, radius, "border")
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    # The order of the sum over channels, the fusing and the fraction's
+    # last bits (the centre floored once, clamped on the grid) differ.
+    assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all(), (
+        (got - want).abs().max())
+    zeros = lookup_correlation_cuda(f0, pyr, locs, radius)
+    if off_map:
+        assert not torch.allclose(got, zeros)       # the clamp acted
+        # A NaN or infinite location writes zeros in both modes.
+        assert (got[0, 0, :3] == 0).all() and (zeros[0, 0, :3] == 0).all()
+
+
+def test_raft_lookup_zeros_mode_is_the_default(card):
+    f0, pyr, locs = lookup_inputs(card, 47, 2, 16, 24, 128, 3)
+    want = lookup_correlation_cuda(f0, pyr, locs, 3)
+    assert torch.equal(lookup_correlation_cuda(f0, pyr, locs, 3, "zeros"),
+                       want)
+    with pytest.raises(ValueError, match="padding"):
+        lookup_correlation_cuda(f0, pyr, locs, 3, "reflect")
+
+
+def test_cotracker2_on_cuda_matches_reference(card):
+    """The port's CoTracker2 on the card in float32 (TF32 off) against the
+    plain reference on the card, each window from the port's carried
+    state: both float32, the gap is the order of sums (~1e-4 px on the
+    CPU); and in bfloat16 it runs, its grid of tracks staged whole."""
+    from cotracker2_reference import CoTracker2Reference, draw_weights
+
+    from feature_tracker_tpu_torch.models.cotracker2 import (
+        CoTracker2,
+        CoTracker2Config,
+        CoTracker2Online,
+    )
+
+    cfg = dict(model_resolution=[64, 96], stride=4, latent_dim=128,
+               hidden_size=64, num_heads=4, time_depth=2, space_depth=2,
+               mlp_ratio=4.0, num_virtual_tracks=8, window_len=8,
+               corr_levels=4, corr_radius=3, input_dim=456, iterations=4)
+    weights = draw_weights(cfg, 48, card)
+    rng = np.random.default_rng(49)
+    base = torch.from_numpy(rng.uniform(0, 255, (1, 3, 24, 40)).astype(
+        np.float32))
+    big = torch.nn.functional.interpolate(base, (80, 120), mode="bilinear")
+    video = np.stack([big[0, :, 8:72, 12 - t:108 - t].permute(1, 2, 0)
+                      .round().to(torch.uint8).numpy() for t in range(12)])
+    ys, xs = np.meshgrid(np.linspace(2, 62, 8), np.linspace(2, 94, 8),
+                         indexing="ij")
+    q = np.stack([np.zeros(64), xs.ravel(), ys.ravel()], -1)
+    q[:4, 0] = [3, 5, 8, 10]
+    reference = CoTracker2Reference(weights, cfg, card)
+    for dtype in (torch.float32, torch.bfloat16):
+        model = CoTracker2(CoTracker2Config(**dict(
+            cfg, model_resolution=(64, 96), dtype=dtype)), device=card)
+        model.load_state_dict(weights)
+        online = CoTracker2Online(model)
+        online.step(video[:4], q)
+        for k in (4, 8):
+            st = online.state
+            state = {"queries": st.queries, "frames": st.frames,
+                     "start": st.start, "coords": st.coords, "vis": st.vis,
+                     "track_feat": st.track_feat}
+            (want, want_vis), _ = reference.online_step(state,
+                                                        video[k:k + 4])
+            tracks, vis = online.step(video[k:k + 4])
+            assert tracks.is_cuda and torch.isfinite(tracks).all()
+            gap = torch.linalg.vector_norm(tracks - want, dim=-1)
+            vis_gap = (vis - want_vis).abs()
+            # float32: the order of sums, as on the CPU (1.5e-4 px there);
+            # bfloat16: its precision (0.06-0.08 px mean at full size).
+            if dtype == torch.float32:
+                assert float(gap.mean()) < 1e-3, float(gap.mean())
+                assert float(vis_gap.mean()) < 1e-3, float(vis_gap.mean())
+            else:
+                assert float(gap.mean()) < 0.2, float(gap.mean())
+    assert model.updateformer._graphs.graphs     # the former replayed
+    locs = online.state.coords[:, :, None].reshape(4, 8, 8, 2) / 4
+    share = staged_share(locs, [(16, 24), (8, 12), (4, 6), (2, 3)], 3, 128,
+                         "border")
+    assert share["queries"] == 1.0, share
+
+
+def test_cotracker2_former_graph_matches_eager(card):
+    """The former's CUDA graph returns the eager former's values bit for
+    bit (autograd on runs it eagerly), with and without an attention mask,
+    and captures once per signature."""
+    from feature_tracker_tpu_torch.models.cotracker2 import (
+        CoTracker2Config,
+        EfficientUpdateFormer,
+    )
+
+    torch.manual_seed(50)
+    former = EfficientUpdateFormer(CoTracker2Config(
+        dtype=torch.bfloat16)).to(card).requires_grad_(False)
+    x = torch.randn(300, 8, 456, device=card)
+    mask = torch.rand(8, 300, device=card) > 0.2
+    for m in (None, mask):
+        want = former(x, m)                     # autograd on: eager
+        with torch.inference_mode():
+            got = [former(x, m).clone() for _ in range(2)]
+        assert torch.equal(got[0], want) and torch.equal(got[1], want)
+    assert len(former._graphs.graphs) == 2
+
+
 def test_raft_on_cuda_matches_cpu(card):
     cfg = raft.RaftConfig(
         max_iterations=3, low_memory=True, feature_channels=64,
