@@ -66,7 +66,7 @@ from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
     lookup_correlation_cuda,
 )
 from feature_tracker_tpu_torch.utils.graphs import GraphCache
-from feature_tracker_tpu_torch.utils.profiling import span
+from feature_tracker_tpu_torch.utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -578,6 +578,23 @@ def upsample_flow_convex(flow, mask, bands=None):
     return up.permute(0, 1, 3, 2, 4, 5).reshape(b, 8 * h, 8 * w, 2)
 
 
+def _normalised_frames(img, device, dtype):
+    """``img`` (0..255; a numpy array, a tensor or a nested list) on
+    ``device`` in -1..1 as ``dtype``.
+
+    Frames are copied in their own dtype (``uint8``: a quarter of
+    float32's bytes) and made float32 on ``device``, not on the host (a
+    blocking copy that changes the dtype converts there). Either device
+    rounds that conversion to nearest, so the values, and the arithmetic
+    after them, are the same bits as a host cast's. Counts the bytes
+    copied from the host in ``raft.input.h2d_bytes``."""
+    src = torch.as_tensor(img)      # numpy arrays and tensors: no copy
+    x = src.to(device).to(torch.float32)
+    crossed = src.device.type == "cpu" and device.type != "cpu"
+    count("raft.input.h2d_bytes", src.nbytes if crossed else 0)
+    return (2.0 * (x / 255.0) - 1.0).to(dtype)
+
+
 class Raft(nn.Module):
     """Full RAFT. ``forward(ref_image, cur_image, train=False)`` takes
     images ``[B, H, W, C]`` with 0..255 gray values (tensors or numpy
@@ -648,10 +665,8 @@ class Raft(nn.Module):
     def _flows(self, ref_image, cur_image, train, bands):
         c = self.cfg
         with span("raft.input"):
-            ref, cur = (
-                (2.0 * (torch.as_tensor(img, dtype=torch.float32,
-                                        device=self.device) / 255.0)
-                 - 1.0).to(c.dtype) for img in (ref_image, cur_image))
+            ref, cur = (_normalised_frames(img, self.device, c.dtype)
+                        for img in (ref_image, cur_image))
         b = ref.shape[0]
 
         if train:

@@ -1749,3 +1749,66 @@ def test_front_end_spans_in_the_kineto_trace(card):
     assert len(launch) == 1 and len(host["klt.launch"]) == 1
     (k0, k1, _), ((l0, l1),) = host["klt.launch"][0], launch
     assert k0 <= l0 <= l1 <= k1
+
+
+def _benchmark_raft():
+    """RAFT as the benchmark's ``raft_full_sintel`` runs it (its widths,
+    bfloat16, 12 iterations, ``low_memory``), with seeded weights."""
+    import dataclasses
+    import json
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parent.parent / "benchmark"
+            / "configs" / "raft_full_sintel.json")
+    conf = json.loads(path.read_text())
+    fields = {f.name for f in dataclasses.fields(raft.RaftConfig)} - {"dtype"}
+    cfg = raft.RaftConfig(dtype=getattr(torch, conf["dtype"]),
+                          **{k: v for k, v in conf.items() if k in fields})
+    torch.manual_seed(41)
+    return raft.Raft(cfg), (conf["height"], conf["width"], conf["in_channels"])
+
+
+def _parent_frames(img, device, dtype):
+    """The input expression before uint8 frames crossed as they are."""
+    return (2.0 * (torch.as_tensor(img, dtype=torch.float32, device=device)
+                   / 255.0) - 1.0).to(dtype)
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_raft_uint8_frames_cross_as_they_are(card, b, monkeypatch):
+    """At the benchmark's widths and 440x1024: host ``uint8`` frames carry
+    their own bytes to the card and give the flows of the float32 input
+    expression bit for bit; ``uint8`` frames already on the card count no
+    bytes and give the same flows; kernel 5 launches 12 times a call."""
+    model, (h, w, c) = _benchmark_raft()
+    frames = np.random.default_rng(42 + b).integers(
+        0, 256, (b + 1, h, w, c), dtype=np.uint8)
+    ref, cur = frames[:-1], frames[1:]
+    profiling.enable()
+    before = lookup_correlation_cuda.launches
+    got = model(ref, cur)
+    assert lookup_correlation_cuda.launches == before + 12
+    on_card = model(*(torch.as_tensor(x, device=card) for x in (ref, cur)))
+    snap = profiling.snapshot()
+    assert snap.counters["raft.input.h2d_bytes"] == {
+        0: ref.nbytes + cur.nbytes, 1: 0}
+    assert snap.select("raft.input").sum() == 2
+    monkeypatch.setattr(raft, "_normalised_frames", _parent_frames)
+    want = model(ref, cur)
+    assert got.shape == want.shape == (1, b, h, w, 2)
+    assert torch.equal(got, want) and torch.equal(on_card, want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32,
+                                   np.float64])
+def test_raft_frames_of_any_dtype_are_made_float32_on_the_card(card, dtype):
+    """Host frames of four dtypes at ``b4``'s shape cross in their own
+    dtype and are made float32 on the card: the normalised frames equal
+    the host float32 expression's bit for bit (float64 carries fractions
+    that the card's cast rounds as the host's does)."""
+    rng = np.random.default_rng(7)
+    img = rng.uniform(0, 255, (4, 440, 1024, 3)).astype(dtype)
+    for out in (torch.float32, torch.bfloat16):
+        got = raft._normalised_frames(img, card, out)
+        assert got.device.type == "cuda" and got.dtype == out
+        assert torch.equal(got, _parent_frames(img, card, out))

@@ -370,6 +370,23 @@ def test_raft_matches_jax(pair_and_weights, low_memory, last_only):
     assert err <= 1e-4, err
 
 
+def test_raft_of_uint8_frames_matches_jax(pair_and_weights):
+    """The port takes ``uint8`` frames (they cross to the device as they
+    are); JAX takes the same values in float32."""
+    ref, cur, jcfg, variables = pair_and_weights
+    ref, cur = (np.round(x).astype(np.uint8) for x in (ref, cur))
+    want = np.asarray(jax_raft.Raft(jcfg).apply(
+        variables, jnp.asarray(ref, jnp.float32),
+        jnp.asarray(cur, jnp.float32)))
+    model = raft.Raft(options_from_jax(jcfg), device="cpu")
+    model.load_state_dict(raft_state_from_jax(variables))
+    got = model(ref, cur)
+    assert got.shape == want.shape == (2, 2, 48, 64, 2)
+    assert np.abs(want).max() > 0.5
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 1e-4, err
+
+
 def test_raft_bfloat16_matches_jax_loosely(pair_and_weights):
     ref, cur, jcfg, variables = pair_and_weights
     jcfg = dataclasses.replace(jcfg, low_memory=True, upsample_last_only=True,
