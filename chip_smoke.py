@@ -61,7 +61,7 @@ Phases (any failed check raises, so the exit code is non-zero):
      window at the published widths on 8 rendered 384x512 RGB frames with
      a 50x50 grid of queries, in float32 and bfloat16, the launch count
      set to 0 just before and read just after (4 launches), against the
-     plain float32 reference (``tests/cotracker2_reference.py``) run from
+     plain float32 reference (``benchmark/reference/cotracker2.py``) run from
      the clip's start; the border kernel on that window's last lookup
      (against its plain version, its staging, its time, bound, plain time
      and phase clocks) and the bfloat16 step's time.
@@ -364,6 +364,21 @@ F32_FLOPS = 67e12
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def cotracker2_reference():
+    """The plain float32 CoTracker2 reference that the benchmark holds the
+    port to (``benchmark/reference/cotracker2.py``), loaded by path: an
+    installed ``benchmark`` or ``tests`` package may shadow the
+    repository's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_ftk_cotracker2_reference",
+        os.path.join(ROOT, "benchmark", "reference", "cotracker2.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def card_line() -> str:
@@ -1275,7 +1290,6 @@ def cotracker2_phases(dev, card):
     entries for the kernels line."""
     import dataclasses
 
-    from cotracker2_reference import CoTracker2Reference, draw_weights
     from synthetic import Texture
 
     from feature_tracker_tpu_torch.models import raft
@@ -1313,8 +1327,9 @@ def cotracker2_phases(dev, card):
     half = cfg.window_len // 2
     ref_cfg = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
                if f.name != "dtype"}
-    weights = draw_weights(ref_cfg, 62, dev)
-    reference = CoTracker2Reference(weights, ref_cfg, dev)
+    cot_ref = cotracker2_reference()
+    weights = cot_ref.draw_weights(ref_cfg, 62, dev)
+    reference = cot_ref.CoTracker2Reference(weights, ref_cfg, dev)
     (want, want_vis), _ = reference.online_step(
         reference.online_start(queries, video[:half]), video[half:])
     for dtype, limit in ((torch.float32, COT_F32_TOL),
@@ -4045,27 +4060,15 @@ def main() -> int:
     # 1. Build every kernel of the paths from this checkout's sources, one
     # nvcc per source, all started together.
     t0 = time.perf_counter()
-    libraries = [cuda_klt.FAST_LIBRARY, cuda_klt.ITER_LIBRARY,
-                 cuda_warp_klt.AFFINE_LIBRARY, cuda_warp_klt.LSSD_LIBRARY,
-                 cuda_raft_lookup.LOOKUP_LIBRARY]
+    kernels = [cuda_klt.FAST, cuda_klt.ITER, cuda_warp_klt.AFFINE,
+               cuda_warp_klt.LSSD, cuda_raft_lookup.LOOKUP]
+    libraries = [k.library for k in kernels]
     # And the redesigned kernels once more with phase clocks compiled in,
     # for the profiles printed with their timings.
-    profiled = [_build.phase_clock_library("ftk_klt_fast_phases",
-                                           "klt_fast.cu"),
-                _build.phase_clock_library("ftk_klt_iter_phases",
-                                           "klt_iter.cu"),
-                _build.phase_clock_library("ftk_klt_affine_phases",
-                                           "klt_affine.cu"),
-                _build.phase_clock_library("ftk_klt_lssd_phases",
-                                           "klt_lssd.cu"),
-                _build.phase_clock_library("ftk_raft_lookup_phases",
-                                           "raft_lookup.cu", True)]
+    profiled = [k.phase_clock_spec() for k in kernels]
     lib_paths = _build.build_libraries(libraries + profiled)[:len(libraries)]
-    for load in (cuda_klt.load_klt_library, cuda_klt.load_klt_iter_library,
-                 cuda_warp_klt.load_affine_library,
-                 cuda_warp_klt.load_lssd_library,
-                 cuda_raft_lookup.load_lookup_library):
-        load()
+    for k in kernels:
+        k.load()
     print(f"[build] {len(lib_paths)} libraries (and {len(profiled)} with "
           "phase clocks) ready in "
           f"{time.perf_counter() - t0:.2f} s (nvcc "

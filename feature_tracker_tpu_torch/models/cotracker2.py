@@ -284,14 +284,14 @@ class EfficientUpdateFormer(nn.Module):
     """``forward(x [N, S, input_dim], mask [S, N] bool or None) -> [N, S,
     2 + latent_dim]`` float32.
 
-    On the card, with autograd off and outside a stream capture, a call
-    replays a CUDA graph of the former (``utils/graphs.py``; ~350 launches
-    an iteration otherwise paced by the host), captured at the first call
-    of its signature: the inputs' shapes and dtypes, the device, inference
-    mode, the TF32 switches and the parameters' addresses. It
-    returns the graph's own output, which the next call overwrites. The
-    tracer counts ``cotracker2.former_graph.captures`` and ``.replays``.
-    Every other call (the CPU) runs the former eagerly."""
+    Where ``GraphCache.engages`` (on the card, autograd off, outside a
+    stream capture), a call replays a CUDA graph of the former
+    (``utils/graphs.py``; ~350 launches an iteration otherwise paced by the
+    host), captured at the first call of its signature
+    (``GraphCache.signature``). It returns the graph's own output, which
+    the next call overwrites. The tracer counts
+    ``cotracker2.former_graph.captures`` and ``.replays``. Every other call
+    (the CPU) runs the former eagerly."""
 
     def __init__(self, cfg: CoTracker2Config):
         super().__init__()
@@ -315,22 +315,13 @@ class EfficientUpdateFormer(nn.Module):
         self.space_virtual2point_blocks = nn.ModuleList(
             [CrossAttnBlock(hid, c.num_heads, c.mlp_ratio, dt)
              for _ in range(c.space_depth)])
-        self._params = list(self.parameters())
-        self._graphs = GraphCache("cotracker2.former_graph")
+        self._graphs = GraphCache("cotracker2.former_graph", self)
 
     def forward(self, x, mask=None):
-        if (x.is_cuda and not torch.is_grad_enabled()
-                and not torch.cuda.is_current_stream_capturing()):
-            inputs = (x,) if mask is None else (x, mask)
-            return self._graphs(self._body, self._signature(inputs), inputs)
+        inputs = (x,) if mask is None else (x, mask)
+        if GraphCache.engages(inputs):
+            return self._graphs(self._body, inputs)
         return self._body(x, mask)
-
-    def _signature(self, inputs):
-        return (tuple((t.shape, t.dtype) for t in inputs), inputs[0].device,
-                torch.is_inference_mode_enabled(),
-                torch.backends.cudnn.allow_tf32,
-                torch.backends.cuda.matmul.allow_tf32,
-                tuple(p.data_ptr() for p in self._params))
 
     def _body(self, x, mask=None):
         dt = self.compute_dtype

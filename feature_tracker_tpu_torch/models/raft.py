@@ -472,16 +472,15 @@ class UpdateBlock(nn.Module):
     and ``delta`` are float32 whatever ``cfg.dtype`` is, and ``corr`` and
     ``flow`` may come in float32 (the block casts them to ``cfg.dtype``).
 
-    On the card, with autograd off (``torch.inference_mode`` or
-    ``no_grad``), without ``bands`` and outside a stream capture, a call
-    replays a CUDA graph of the block (``utils/graphs.py``), captured at
-    the first call of its signature: the shapes, dtypes and device of the
-    inputs, inference mode, cuDNN's switches (TF32 among them) and the
-    parameters' addresses. It launches the kernels the eager block launches, on the
-    same values, as one graph instead of ~70 launches from the host, and
-    returns copies of the graph's outputs (the graph's own tensors inside
-    :meth:`_lending`). Every other call (training, ``bands``, the CPU) runs
-    the block eagerly. The tracer counts ``raft.update_graph.captures`` and
+    Where ``GraphCache.engages`` (on the card, autograd off, outside a
+    stream capture) and without ``bands``, a call replays a CUDA graph of
+    the block (``utils/graphs.py``), captured at the first call of its
+    signature (``GraphCache.signature``). It launches the kernels the eager
+    block launches, on the same values, as one graph instead of ~70
+    launches from the host, and returns copies of the graph's outputs (the
+    graph's own tensors inside :meth:`_lending`). Every other call
+    (training, ``bands``, the CPU) runs the block eagerly. The tracer
+    counts ``raft.update_graph.captures`` and
     ``raft.update_graph.replays``."""
 
     def __init__(self, cfg: RaftConfig):
@@ -499,17 +498,15 @@ class UpdateBlock(nn.Module):
         self.mask_out = Conv(c.mask_hidden_channels, 8 * 8 * 9, 1, 1,
                              torch.float32)
         self.compute_dtype = dt
-        self._convs = [m for m in self.modules() if isinstance(m, Conv)]
-        self._graphs = GraphCache("raft.update_graph")
+        self._graphs = GraphCache("raft.update_graph", self)
         self._lends = False
 
     def forward(self, net, inp, corr, flow, bands=None):
-        if (net.is_cuda and bands is None and not torch.is_grad_enabled()
-                and not torch.cuda.is_current_stream_capturing()):
+        inputs = (net, inp, corr, flow)
+        if bands is None and GraphCache.engages(inputs):
             dt = self.compute_dtype
-            out = self._graphs(self._carried, self._signature(
-                net, inp, corr, flow), (net, inp, corr, flow),
-                (None, None, dt, dt), self._lends)
+            out = self._graphs(self._carried, inputs, (None, None, dt, dt),
+                               self._lends)
             return out if self._lends else tuple(t.clone() for t in out)
         return self._body(net, inp, corr, flow, bands)
 
@@ -519,14 +516,6 @@ class UpdateBlock(nn.Module):
         passes it back makes no copy."""
         new, mask, delta = self._body(net, inp, corr, flow)
         return net.copy_(new), mask, delta
-
-    def _signature(self, *inputs):
-        cudnn = torch.backends.cudnn
-        return (tuple((x.shape, x.dtype) for x in inputs), inputs[0].device,
-                torch.is_inference_mode_enabled(), cudnn.enabled,
-                cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
-                tuple(p.data_ptr() for m in self._convs
-                      for p in m._parameters.values()))
 
     @contextlib.contextmanager
     def _lending(self):

@@ -5,9 +5,9 @@
 and level, all in one launch: the block copies the bounding box of its
 queries' windows into shared memory once and forms the dot products there;
 its header states what it computes, its bound on an H100 and its design. It
-is built by ``nvcc`` at first use (``ops/_build.py``) and called through
-``ctypes`` on PyTorch's current stream. :func:`staged_share` mirrors the
-kernel's staging rule on the host.
+is built by ``nvcc`` at first use (``ops/_build.py``) and launched through
+``ops/_launch.py``. :func:`staged_share` mirrors the kernel's staging rule
+on the host.
 
 :func:`lookup_correlation_cuda` dispatches by the tensors' device: CPU
 tensors take the plain PyTorch version
@@ -18,20 +18,19 @@ CUDA input the kernel cannot take raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from feature_tracker_tpu_torch.ops.cuda_klt import (
-    MAX_LEVELS,
-    bind,
-    bind_phase_clocks,
+from feature_tracker_tpu_torch.ops._launch import (
+    STREAM,
+    Kernel,
     check,
+    need_card,
     raise_on_error,
-    read_phase_clocks,
 )
-from feature_tracker_tpu_torch.utils.profiling import counts_launches, span
+from feature_tracker_tpu_torch.ops.cuda_klt import MAX_LEVELS
+from feature_tracker_tpu_torch.utils.profiling import counts_launches
 
 # The one library built with fused multiply-adds (see the source's header).
 LOOKUP_LIBRARY = ("ftk_raft_lookup", ("raft_lookup.cu",), True)
@@ -44,9 +43,6 @@ MAX_CORNER = 2.0 ** 30        # |floor(location / 2^l)| beyond: no valid tap
 
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-
-_LOOKUP_ARGTYPES = ([_VP] * 3 + [_INT] + [_VP] * 3 + [_INT] * 6
-                    + [_FLOAT, _VP, _VP])
 # The kernel's padding modes, by the int it takes.
 PADDINGS = {"zeros": 0, "border": 1}
 # The phases csrc/raft_lookup.cu marks (clocks of each block's first
@@ -54,12 +50,9 @@ PADDINGS = {"zeros": 0, "border": 1}
 LOOKUP_PHASES = ("queries and box", "waiting for copies and the block",
                  "starting copies", "multiply-adds", "dots and blend",
                  "per-query path")
-
-
-@functools.lru_cache(maxsize=None)
-def load_lookup_library() -> ctypes.CDLL:
-    """Build (at first use) and load the lookup kernel's library."""
-    return bind(LOOKUP_LIBRARY, "ftk_raft_lookup", _LOOKUP_ARGTYPES)
+LOOKUP = Kernel(LOOKUP_LIBRARY, "ftk_raft_lookup",
+                [_VP] * 3 + [_INT] + [_VP] * 3 + [_INT] * 6
+                + [_FLOAT, _VP, _VP], "raft_lookup.launch", LOOKUP_PHASES)
 
 
 def correlation_scale(channels: int) -> float:
@@ -69,8 +62,10 @@ def correlation_scale(channels: int) -> float:
 
 def lookup_blocks_per_sm(radius: int = 3) -> int:
     """How many blocks of the kernel (its 16-byte path at ``radius``) one SM
-    of the current card holds at once; nothing is launched."""
-    lib = load_lookup_library()
+    of the current card holds at once: the entry's query, given a place for
+    the count; nothing is launched."""
+    need_card("lookup_blocks_per_sm")
+    lib = LOOKUP.load()
     one = (ctypes.c_int * 1)(1)
     ptr = (ctypes.c_void_p * 1)(0)
     blocks = ctypes.c_int(0)
@@ -195,15 +190,21 @@ def lookup_correlation_cuda(fmap0, fmap1_pyramid, locations, radius: int,
     # Imported here: models.raft imports this module.
     from feature_tracker_tpu_torch.models.raft import lookup_correlation_otf
 
-    where = "lookup_correlation_cuda"
-    dev = fmap0.device
-    check(padding in PADDINGS, where,
+    check(padding in PADDINGS, "lookup_correlation_cuda",
           f"padding must be one of {sorted(PADDINGS)}, got {padding!r}")
-    if dev.type == "cpu":
-        with span("raft_lookup.launch"):
-            return lookup_correlation_otf(fmap0, fmap1_pyramid, locations,
-                                          radius, padding)
-    check(dev.type == "cuda", where, f"unsupported device {dev}")
+    return LOOKUP(lookup_correlation_cuda, fmap0,
+                  lambda: lookup_correlation_otf(fmap0, fmap1_pyramid,
+                                                 locations, radius, padding),
+                  lambda: _prepare_lookup(
+                      "lookup_correlation_cuda", fmap0, fmap1_pyramid,
+                      locations, radius, padding))
+
+
+def _prepare_lookup(where: str, fmap0, fmap1_pyramid, locations, radius: int,
+                   padding: str):
+    """Check the inputs and allocate the output of the kernel: ``(output,
+    args)`` for :meth:`Kernel.__call__` (no work for an empty output)."""
+    dev = fmap0.device
     levels = len(fmap1_pyramid)
     check(1 <= levels <= MAX_LEVELS, where,
           f"need 1..{MAX_LEVELS} pyramid levels, got {levels}")
@@ -221,61 +222,29 @@ def lookup_correlation_cuda(fmap0, fmap1_pyramid, locations, radius: int,
               "all tensors must be contiguous float32 on one device")
     check(isinstance(radius, int) and radius >= 0, where,
           "radius must be a non-negative int")
-
-    out = _launch_lookup(load_lookup_library(), fmap0, fmap1_pyramid,
-                         locations, radius, padding)
-    if out.numel():
-        lookup_correlation_cuda.launches += 1
-    return out
-
-
-def _launch_lookup(lib, fmap0, fmap1_pyramid, locations, radius: int,
-                   padding: str = "zeros"):
-    """Allocate the output and launch ``lib``'s kernel on checked inputs
-    (nothing is launched for an empty output)."""
-    with span("raft_lookup.launch"):
-        return _enqueue_lookup(lib, fmap0, fmap1_pyramid, locations, radius,
-                               padding)
-
-
-def _enqueue_lookup(lib, fmap0, fmap1_pyramid, locations, radius: int,
-                    padding: str):
-    dev = fmap0.device
-    b, h, w, c = fmap0.shape
-    levels = len(fmap1_pyramid)
     k = 2 * radius + 1
     out = torch.empty((b, h, w, levels * k * k), dtype=torch.float32,
                       device=dev)
+
     if out.numel() == 0:
-        return out
+        return out, None
     ptrs = (ctypes.c_void_p * levels)(*[f.data_ptr() for f in fmap1_pyramid])
     heights = (ctypes.c_int * levels)(*[f.shape[1] for f in fmap1_pyramid])
     widths = (ctypes.c_int * levels)(*[f.shape[2] for f in fmap1_pyramid])
-    with torch.cuda.device(dev):
-        rc = lib.ftk_raft_lookup(
-            ctypes.cast(ptrs, _VP), ctypes.cast(heights, _VP),
-            ctypes.cast(widths, _VP), levels, fmap0.data_ptr(),
-            locations.data_ptr(), out.data_ptr(), b, h, w, c, radius,
-            PADDINGS[padding], correlation_scale(c),
-            torch.cuda.current_stream(dev).cuda_stream,
-            None)
-    raise_on_error(lib, "ftk_raft_lookup", rc)
-    return out
+    return out, [ctypes.cast(ptrs, _VP), ctypes.cast(heights, _VP),
+                 ctypes.cast(widths, _VP), levels, fmap0.data_ptr(),
+                 locations.data_ptr(), out.data_ptr(), b, h, w, c, radius,
+                 PADDINGS[padding], correlation_scale(c), STREAM, None]
 
 
 def lookup_phase_clocks(fmap0, fmap1_pyramid, locations, radius: int,
                         padding: str = "zeros") -> dict:
     """Where the lookup kernel's time goes on these (valid, CUDA) inputs:
-    one launch of its build with phase clocks (``csrc/klt_common.cuh``),
-    then the shares of ``LOOKUP_PHASES`` in the clocks of the blocks' first
-    threads (:func:`cuda_klt.read_phase_clocks`). A diagnostic: the launch
-    is not counted as the wrapper's."""
-    lib = bind_phase_clocks("ftk_raft_lookup_phases", "raft_lookup.cu",
-                            "ftk_raft_lookup", _LOOKUP_ARGTYPES, fmad=True)
-    read_phase_clocks(lib, LOOKUP_PHASES)
-    _launch_lookup(lib, fmap0, fmap1_pyramid, locations, radius, padding)
-    torch.cuda.synchronize(fmap0.device)
-    return read_phase_clocks(lib, LOOKUP_PHASES)
+    the shares of ``LOOKUP_PHASES`` in the clocks of the blocks' first
+    threads (:meth:`Kernel.phase_clocks`)."""
+    where = "lookup_phase_clocks"
+    return LOOKUP.phase_clocks(where, fmap0, lambda: _prepare_lookup(
+        where, fmap0, fmap1_pyramid, locations, radius, padding))
 
 
 counts_launches(lookup_correlation_cuda)

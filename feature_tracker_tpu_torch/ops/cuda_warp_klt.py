@@ -5,8 +5,7 @@ mode — the counterpart of ``feature_tracker_tpu/ops/pallas_warp_klt.py``.
 feature through the whole coarse-to-fine loop in one launch (one level is a
 pyramid of one). Their headers state what they compute, their solver, their
 bound on an H100 and their design. They are built by ``nvcc`` at first use
-(``ops/_build.py``) and called through ``ctypes`` on PyTorch's current
-stream.
+(``ops/_build.py``) and launched through ``ops/_launch.py``.
 
 :func:`affine_track_pyramid_cuda`, :func:`affine_track_level_cuda`,
 :func:`lssd_track_pyramid_cuda` and :func:`lssd_track_level_cuda` dispatch
@@ -18,21 +17,15 @@ kernels. A CUDA input a kernel cannot take raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
+from feature_tracker_tpu_torch.ops._launch import STREAM, Kernel, check
 from feature_tracker_tpu_torch.ops.cuda_klt import (
-    bind,
-    bind_phase_clocks,
-    check,
     check_features,
     check_pyramids,
-    occupancy,
     pyramid_args,
-    raise_on_error,
-    read_phase_clocks,
 )
 from feature_tracker_tpu_torch.utils.profiling import counts_launches
 
@@ -41,37 +34,19 @@ LSSD_LIBRARY = ("ftk_klt_lssd", ("klt_lssd.cu",))
 
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-
-_AFFINE_ARGTYPES = ([_VP] * 4 + [_INT] + [_VP] * 7 + [_INT] * 5
-                    + [_FLOAT, _VP])
 # The phases csrc/klt_affine.cu marks, in its order.
 AFFINE_PHASES = ("patch", "sums of H", "reduction of H", "factorisation",
                  "step pixels", "step reduction", "step solve")
+AFFINE = Kernel(AFFINE_LIBRARY, "ftk_klt_affine_pyramid",
+                [_VP] * 4 + [_INT] + [_VP] * 7 + [_INT] * 5 + [_FLOAT, _VP],
+                "klt.launch", AFFINE_PHASES)
 
-
-@functools.lru_cache(maxsize=None)
-def load_affine_library() -> ctypes.CDLL:
-    """Build (at first use) and load the affine kernel's library."""
-    lib = bind(AFFINE_LIBRARY, "ftk_klt_affine_pyramid", _AFFINE_ARGTYPES)
-    lib.ftk_klt_affine_occupancy.argtypes = [_INT, _INT, _VP, _VP, _VP]
-    lib.ftk_klt_affine_occupancy.restype = _INT
-    return lib
-
-
-_LSSD_ARGTYPES = ([_VP] * 4 + [_INT] + [_VP] * 9 + [_INT] * 6
-                  + [_FLOAT, _VP])
 # The phases csrc/klt_lssd.cu marks, in its order.
 LSSD_PHASES = ("patch", "pass 1", "means", "pass 2", "step reduction",
                "step solve")
-
-
-@functools.lru_cache(maxsize=None)
-def load_lssd_library() -> ctypes.CDLL:
-    """Build (at first use) and load the SE(2) kernel's library."""
-    lib = bind(LSSD_LIBRARY, "ftk_klt_lssd_pyramid", _LSSD_ARGTYPES)
-    lib.ftk_klt_lssd_occupancy.argtypes = [_INT, _INT, _INT, _VP, _VP, _VP]
-    lib.ftk_klt_lssd_occupancy.restype = _INT
-    return lib
+LSSD = Kernel(LSSD_LIBRARY, "ftk_klt_lssd_pyramid",
+              [_VP] * 4 + [_INT] + [_VP] * 9 + [_INT] * 6 + [_FLOAT, _VP],
+              "klt.launch", LSSD_PHASES)
 
 
 def _fast_only(where: str, opts: KltOptions) -> None:
@@ -80,11 +55,11 @@ def _fast_only(where: str, opts: KltOptions) -> None:
           "trackers.klt's plain PyTorch")
 
 
-def _launch_affine(where: str, lib, opts: KltOptions, ref_pyr, cur_pyr,
-                   ref_uv, cur_uv, affine, skip):
-    """Check the inputs and launch ``lib``'s affine kernel on a pyramid
-    (finest level first; positions at full resolution). Returns the outputs
-    and whether a kernel was launched (not for zero features)."""
+def _prepare_affine(where: str, opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
+                   cur_uv, affine, skip):
+    """Check the inputs and allocate the outputs of the affine kernel on a
+    pyramid (finest level first; positions at full resolution): ``(outputs,
+    args)`` for :meth:`Kernel.__call__`."""
     dev = ref_uv.device
     levels = check_pyramids(where, dev, ref_pyr, cur_pyr)
     n = ref_uv.shape[0]
@@ -94,18 +69,14 @@ def _launch_affine(where: str, lib, opts: KltOptions, ref_pyr, cur_pyr,
     out_aff = torch.empty((n, 2, 2), dtype=torch.float32, device=dev)
     out_st = torch.empty((n,), dtype=torch.int8, device=dev)
     if n == 0:
-        return (out_uv, out_aff, out_st), False
-    with torch.cuda.device(dev):
-        rc = lib.ftk_klt_affine_pyramid(
-            *pyramid_args(ref_pyr, cur_pyr), levels, ref_uv.data_ptr(),
-            cur_uv.data_ptr(), affine.data_ptr(), skip.data_ptr(),
-            out_uv.data_ptr(), out_aff.data_ptr(), out_st.data_ptr(), n,
-            opts.patch_row_half_size, opts.patch_col_half_size,
-            opts.max_iterations, opts.max_tolerance_large_step,
-            float(opts.max_converge_step),
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(lib, "ftk_klt_affine_pyramid", rc)
-    return (out_uv, out_aff, out_st), True
+        return (out_uv, out_aff, out_st), None
+    return (out_uv, out_aff, out_st), [
+        *pyramid_args(ref_pyr, cur_pyr), levels, ref_uv.data_ptr(),
+        cur_uv.data_ptr(), affine.data_ptr(), skip.data_ptr(),
+        out_uv.data_ptr(), out_aff.data_ptr(), out_st.data_ptr(), n,
+        opts.patch_row_half_size, opts.patch_col_half_size,
+        opts.max_iterations, opts.max_tolerance_large_step,
+        float(opts.max_converge_step), STREAM]
 
 
 def affine_track_pyramid_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
@@ -126,22 +97,19 @@ def affine_track_pyramid_cuda(opts: KltOptions, ref_pyr, cur_pyr, ref_uv,
     pass-through of the input status are the caller's. CPU tensors take the
     plain PyTorch version (the level loop over the one-level plain
     version); CUDA tensors launch the kernel (counted in
-    ``affine_track_pyramid_cuda.launches``) or raise."""
+    ``affine_track_pyramid_cuda.launches``) or raise. Either is a
+    ``klt.launch`` span."""
     # Imported here: trackers.klt imports this module.
     from feature_tracker_tpu_torch.trackers.klt.affine import (
         affine_track_pyramid_reference,
     )
-    _fast_only("affine_track_pyramid_cuda", opts)
-    if ref_uv.device.type == "cpu":
-        return affine_track_pyramid_reference(opts, ref_pyr, cur_pyr, ref_uv,
-                                              cur_uv, affine, skip)
-    check(ref_uv.device.type == "cuda", "affine_track_pyramid_cuda",
-          f"unsupported device {ref_uv.device}")
-    out, launched = _launch_affine(
-        "affine_track_pyramid_cuda", load_affine_library(), opts, ref_pyr,
-        cur_pyr, ref_uv, cur_uv, affine, skip)
-    affine_track_pyramid_cuda.launches += launched
-    return out
+    where = "affine_track_pyramid_cuda"
+    _fast_only(where, opts)
+    return AFFINE(affine_track_pyramid_cuda, ref_uv,
+                  lambda: affine_track_pyramid_reference(
+                      opts, ref_pyr, cur_pyr, ref_uv, cur_uv, affine, skip),
+                  lambda: _prepare_affine(where, opts, ref_pyr, cur_pyr,
+                                          ref_uv, cur_uv, affine, skip))
 
 
 def affine_track_level_cuda(opts: KltOptions, ref_img, cur_img, ref_uv,
@@ -158,53 +126,46 @@ def affine_track_level_cuda(opts: KltOptions, ref_img, cur_img, ref_uv,
 
     Returns ``(uv [N, 2], affine [N, 2, 2], status [N] int8)``. CPU tensors
     take the plain PyTorch version; CUDA tensors launch the kernel (counted
-    in ``affine_track_level_cuda.launches``) or raise."""
+    in ``affine_track_level_cuda.launches``) or raise. Either is a
+    ``klt.launch`` span."""
     from feature_tracker_tpu_torch.trackers.klt.affine import (
         affine_track_level_reference,
     )
-    _fast_only("affine_track_level_cuda", opts)
-    if ref_uv.device.type == "cpu":
-        return affine_track_level_reference(opts, ref_img, cur_img, ref_uv,
-                                            cur_uv, affine, skip)
-    check(ref_uv.device.type == "cuda", "affine_track_level_cuda",
-          f"unsupported device {ref_uv.device}")
-    out, launched = _launch_affine(
-        "affine_track_level_cuda", load_affine_library(), opts, (ref_img,),
-        (cur_img,), ref_uv, cur_uv, affine, skip)
-    affine_track_level_cuda.launches += launched
-    return out
+    where = "affine_track_level_cuda"
+    _fast_only(where, opts)
+    return AFFINE(affine_track_level_cuda, ref_uv,
+                  lambda: affine_track_level_reference(
+                      opts, ref_img, cur_img, ref_uv, cur_uv, affine, skip),
+                  lambda: _prepare_affine(where, opts, (ref_img,), (cur_img,),
+                                          ref_uv, cur_uv, affine, skip))
 
 
 def affine_phase_clocks(opts: KltOptions, ref_pyr, cur_pyr, ref_uv, cur_uv,
                         affine, skip) -> dict:
-    """Where the affine kernel's time goes on these CUDA inputs: one launch
-    of its build with phase clocks (``csrc/klt_common.cuh``), then the
-    shares of ``AFFINE_PHASES`` in the clocks of all warps
-    (:func:`cuda_klt.read_phase_clocks`). A diagnostic: the clocks slow the
-    kernel a little, and the launch is in no wrapper's count."""
-    lib = bind_phase_clocks("ftk_klt_affine_phases", "klt_affine.cu",
-                            "ftk_klt_affine_pyramid", _AFFINE_ARGTYPES)
-    read_phase_clocks(lib, AFFINE_PHASES)
-    _launch_affine("affine_phase_clocks", lib, opts, ref_pyr, cur_pyr, ref_uv,
-                   cur_uv, affine, skip)
-    torch.cuda.synchronize(ref_uv.device)
-    return read_phase_clocks(lib, AFFINE_PHASES)
+    """Where the affine kernel's time goes on these CUDA inputs: the shares
+    of ``AFFINE_PHASES`` in the clocks of all warps
+    (:meth:`Kernel.phase_clocks`; the clocks slow the kernel a little)."""
+    where = "affine_phase_clocks"
+    return AFFINE.phase_clocks(where, ref_uv, lambda: _prepare_affine(
+        where, opts, ref_pyr, cur_pyr, ref_uv, cur_uv, affine, skip))
 
 
 def affine_occupancy(opts: KltOptions) -> dict:
-    """:func:`cuda_klt.occupancy` of the affine kernel at ``opts``' patch
+    """:meth:`Kernel.occupancy` of the affine kernel at ``opts``' patch
     size."""
-    return occupancy(load_affine_library(), "ftk_klt_affine_occupancy",
-                     opts)
+    return AFFINE.occupancy("affine_occupancy", "ftk_klt_affine_occupancy",
+                            opts.patch_row_half_size,
+                            opts.patch_col_half_size)
 
 
-def _launch_lssd(where: str, lib, opts: KltOptions, luminance: bool,
-                 ref_pyr, cur_pyr, ref_uv, rot, skip, cur_uv=None, t=None):
-    """Check the inputs and launch ``lib``'s SE(2) kernel on a pyramid
-    (finest level first) with ``cur_uv`` (full resolution: the whole-pyramid
-    case, returns ``(uv, rot, status)``) or ``t`` (the coarsest level's
-    translation: the one-level case, returns ``(rot, t, status)``). Also
-    returns whether a kernel was launched (not for zero features)."""
+def _prepare_lssd(where: str, opts: KltOptions, luminance: bool, ref_pyr,
+                 cur_pyr, ref_uv, rot, skip, cur_uv, t):
+    """Check the inputs and allocate the outputs of the SE(2) kernel on a
+    pyramid (finest level first) with ``cur_uv`` (full resolution: the
+    whole-pyramid case, outputs ``(uv, rot, status)``) or ``t`` (the
+    coarsest level's translation: the one-level case, outputs ``(rot, t,
+    status)``), the other None: ``(outputs, args)`` for
+    :meth:`Kernel.__call__`."""
     dev = ref_uv.device
     levels = check_pyramids(where, dev, ref_pyr, cur_pyr)
     n = ref_uv.shape[0]
@@ -217,20 +178,17 @@ def _launch_lssd(where: str, lib, opts: KltOptions, luminance: bool,
     out = ((out_v, out_rot, out_st) if t is None
            else (out_rot, out_v, out_st))
     if n == 0:
-        return out, False
+        return out, None
     ptr = (lambda x: None if x is None else x.data_ptr())
-    with torch.cuda.device(dev):
-        rc = lib.ftk_klt_lssd_pyramid(
-            *pyramid_args(ref_pyr, cur_pyr), levels, ref_uv.data_ptr(),
-            ptr(cur_uv), ptr(t), rot.data_ptr(), skip.data_ptr(),
-            out_v.data_ptr() if t is None else None, out_rot.data_ptr(),
-            None if t is None else out_v.data_ptr(), out_st.data_ptr(), n,
-            int(bool(luminance)), opts.patch_row_half_size,
-            opts.patch_col_half_size, opts.max_iterations,
-            opts.max_tolerance_large_step, float(opts.max_converge_step),
-            torch.cuda.current_stream(dev).cuda_stream)
-    raise_on_error(lib, "ftk_klt_lssd_pyramid", rc)
-    return out, True
+    return out, [
+        *pyramid_args(ref_pyr, cur_pyr), levels, ref_uv.data_ptr(),
+        ptr(cur_uv), ptr(t), rot.data_ptr(), skip.data_ptr(),
+        out_v.data_ptr() if t is None else None, out_rot.data_ptr(),
+        None if t is None else out_v.data_ptr(), out_st.data_ptr(), n,
+        int(bool(luminance)), opts.patch_row_half_size,
+        opts.patch_col_half_size, opts.max_iterations,
+        opts.max_tolerance_large_step, float(opts.max_converge_step),
+        STREAM]
 
 
 def lssd_track_pyramid_cuda(opts: KltOptions, luminance: bool, ref_pyr,
@@ -253,45 +211,38 @@ def lssd_track_pyramid_cuda(opts: KltOptions, luminance: bool, ref_pyr,
     skip pass-through of the input position and status are the caller's.
     CPU tensors take the plain PyTorch version (the level loop over the
     one-level plain version); CUDA tensors launch the kernel (counted in
-    ``lssd_track_pyramid_cuda.launches``) or raise."""
+    ``lssd_track_pyramid_cuda.launches``) or raise. Either is a
+    ``klt.launch`` span."""
     from feature_tracker_tpu_torch.trackers.klt.lssd import (
         lssd_track_pyramid_reference,
     )
     where = "lssd_track_pyramid_cuda"
     _fast_only(where, opts)
-    if ref_uv.device.type == "cpu":
-        return lssd_track_pyramid_reference(opts, luminance, ref_pyr,
-                                            cur_pyr, ref_uv, cur_uv, rot,
-                                            skip)
-    check(ref_uv.device.type == "cuda", where,
-          f"unsupported device {ref_uv.device}")
-    out, launched = _launch_lssd(where, load_lssd_library(), opts, luminance,
-                                 ref_pyr, cur_pyr, ref_uv, rot, skip,
-                                 cur_uv=cur_uv)
-    lssd_track_pyramid_cuda.launches += launched
-    return out
+    return LSSD(lssd_track_pyramid_cuda, ref_uv,
+                lambda: lssd_track_pyramid_reference(
+                    opts, luminance, ref_pyr, cur_pyr, ref_uv, cur_uv, rot,
+                    skip),
+                lambda: _prepare_lssd(where, opts, luminance, ref_pyr, cur_pyr,
+                                      ref_uv, rot, skip, cur_uv, None))
 
 
 def lssd_phase_clocks(opts: KltOptions, luminance: bool, ref_pyr, cur_pyr,
                       ref_uv, cur_uv, rot, skip) -> dict:
-    """Where the SE(2) kernel's time goes on these CUDA inputs: one
-    whole-pyramid launch of its build with phase clocks, then the shares of
-    ``LSSD_PHASES`` (:func:`cuda_klt.read_phase_clocks`). A diagnostic: the
-    launch is in no wrapper's count."""
-    lib = bind_phase_clocks("ftk_klt_lssd_phases", "klt_lssd.cu",
-                            "ftk_klt_lssd_pyramid", _LSSD_ARGTYPES)
-    read_phase_clocks(lib, LSSD_PHASES)
-    _launch_lssd("lssd_phase_clocks", lib, opts, luminance, ref_pyr, cur_pyr,
-                 ref_uv, rot, skip, cur_uv=cur_uv)
-    torch.cuda.synchronize(ref_uv.device)
-    return read_phase_clocks(lib, LSSD_PHASES)
+    """Where the SE(2) kernel's time goes on these CUDA inputs: the shares
+    of ``LSSD_PHASES`` in one whole-pyramid launch
+    (:meth:`Kernel.phase_clocks`)."""
+    where = "lssd_phase_clocks"
+    return LSSD.phase_clocks(where, ref_uv, lambda: _prepare_lssd(
+        where, opts, luminance, ref_pyr, cur_pyr, ref_uv, rot, skip, cur_uv,
+        None))
 
 
 def lssd_occupancy(opts: KltOptions, luminance: bool = False) -> dict:
-    """:func:`cuda_klt.occupancy` of the SE(2) kernel that ``opts`` and
+    """:meth:`Kernel.occupancy` of the SE(2) kernel that ``opts`` and
     ``luminance`` launch."""
-    return occupancy(load_lssd_library(), "ftk_klt_lssd_occupancy", opts,
-                     int(bool(luminance)))
+    return LSSD.occupancy("lssd_occupancy", "ftk_klt_lssd_occupancy",
+                          opts.patch_row_half_size, opts.patch_col_half_size,
+                          int(bool(luminance)))
 
 
 def lssd_track_level_cuda(opts: KltOptions, luminance: bool, ref_img,
@@ -309,22 +260,18 @@ def lssd_track_level_cuda(opts: KltOptions, luminance: bool, ref_img,
 
     Returns ``(rot [N, 2, 2], t [N, 2], status [N] int8)``. CPU tensors
     take the plain PyTorch version; CUDA tensors launch the kernel (counted
-    in ``lssd_track_level_cuda.launches``) or raise."""
+    in ``lssd_track_level_cuda.launches``) or raise. Either is a
+    ``klt.launch`` span."""
     from feature_tracker_tpu_torch.trackers.klt.lssd import (
         lssd_track_level_reference,
     )
     where = "lssd_track_level_cuda"
     _fast_only(where, opts)
-    if ref_uv.device.type == "cpu":
-        return lssd_track_level_reference(opts, luminance, ref_img, cur_img,
-                                          ref_uv, rot, t, skip)
-    check(ref_uv.device.type == "cuda", where,
-          f"unsupported device {ref_uv.device}")
-    out, launched = _launch_lssd(where, load_lssd_library(), opts, luminance,
-                                 (ref_img,), (cur_img,), ref_uv, rot, skip,
-                                 t=t)
-    lssd_track_level_cuda.launches += launched
-    return out
+    return LSSD(lssd_track_level_cuda, ref_uv,
+                lambda: lssd_track_level_reference(
+                    opts, luminance, ref_img, cur_img, ref_uv, rot, t, skip),
+                lambda: _prepare_lssd(where, opts, luminance, (ref_img,),
+                                      (cur_img,), ref_uv, rot, skip, None, t))
 
 
 counts_launches(affine_track_pyramid_cuda, affine_track_level_cuda,

@@ -8,16 +8,17 @@ graph: one launch for the chain. The same kernels run on the same values,
 so the outputs are the eager calls' bit for bit where the libraries choose
 the same algorithms under capture, which they do at fixed settings.
 
-The caller decides when a call may replay (on the card, autograd off, no
-stream capture in progress) and builds the signature (``key``): every
-property of the call that the captured kernels depend on and that the
-graph cannot read anew at replay — shapes, dtypes, device, the library
-switches that pick kernels, the addresses of the parameters read.
+``GraphCache`` decides when a call may replay (:meth:`GraphCache.engages`)
+and builds its signature (:meth:`GraphCache.signature`): every property of
+the call that the captured kernels depend on and that the graph cannot
+read anew at replay. A caller may keep a call eager for a reason of its
+own, and decides what becomes of the graph's outputs.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 
 import torch
 
@@ -35,25 +36,51 @@ class _Graph:
 
 
 class GraphCache:
-    """The graphs of one function, at most ``size``, the least recently
-    replayed released first. A call copies its inputs into the graph's
-    inputs (each cast to its entry of ``dtypes`` where that is not None:
-    one launch for the cast and the copy) and replays the graph; it returns
-    the graph's own output tensors, which the next call with the same
-    signature overwrites. Counts ``<name>.captures`` and
-    ``<name>.replays`` in the port's tracer."""
+    """The graphs of one function of the module ``owner``, at most
+    ``size``, the least recently replayed released first. A call copies its
+    inputs into the graph's inputs (each cast to its entry of ``dtypes``
+    where that is not None: one launch for the cast and the copy) and
+    replays the graph; it returns the graph's own output tensors, which the
+    next call with the same signature overwrites. Counts
+    ``<name>.captures`` and ``<name>.replays`` in the port's tracer."""
 
-    def __init__(self, name: str, size: int = 4):
+    def __init__(self, name: str, owner, size: int = 4):
         self.name, self.size = name, size
+        self.modules = list(owner.modules())
         self.graphs: collections.OrderedDict = collections.OrderedDict()
 
-    def __call__(self, fn, key, inputs, dtypes=None, reuse=False):
-        """``fn(*inputs)`` (a tuple of tensors) through the graph of
-        ``key``, captured first if there is none. An input that is the
-        graph's own input tensor (``fn`` may return one) is not copied;
-        with ``reuse``, neither is one that is the tensor given at the last
-        call, if that call gave ``reuse`` too: the caller vouches that it
-        has not changed since."""
+    @staticmethod
+    def engages(inputs) -> bool:
+        """Whether a call on ``inputs`` may replay a graph: the inputs are
+        on the card (the first one's device, which the graph is captured
+        on), autograd is off (``torch.inference_mode`` or ``no_grad``) and
+        no stream capture is in progress."""
+        return (inputs[0].is_cuda and not torch.is_grad_enabled()
+                and not torch.cuda.is_current_stream_capturing())
+
+    def signature(self, inputs) -> tuple:
+        """The key of the graph of a call on ``inputs``: the inputs' shapes
+        and dtypes, their device, inference mode, cuDNN's ``enabled``,
+        ``benchmark``, ``deterministic`` and ``allow_tf32``, the matrix
+        products' ``allow_tf32``, and the addresses of the owner's
+        parameters, read anew at each call: a parameter that is replaced
+        (``load_state_dict(assign=True)``) gives a new key."""
+        cudnn = torch.backends.cudnn
+        return (tuple((x.shape, x.dtype) for x in inputs), inputs[0].device,
+                torch.is_inference_mode_enabled(), cudnn.enabled,
+                cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+                tuple(p.data_ptr() for m in self.modules
+                      for p in m._parameters.values() if p is not None))
+
+    def __call__(self, fn, inputs, dtypes=None, reuse=False):
+        """``fn(*inputs)`` (a tuple of tensors that :meth:`engages`)
+        through the graph of its signature, captured first if there is
+        none. An input that is the graph's own input tensor (``fn`` may
+        return one) is not copied; with ``reuse``, neither is one that is
+        the tensor given at the last call, if that call gave ``reuse`` too:
+        the caller vouches that it has not changed since."""
+        key = self.signature(inputs)
         entry = self.graphs.get(key)
         if entry is None:
             entry = self._capture(fn, inputs, dtypes)
@@ -96,5 +123,10 @@ class GraphCache:
         return _Graph(graph, static, outputs)
 
     def __deepcopy__(self, memo):
-        """A copy starts empty: a graph holds its module's addresses."""
-        return GraphCache(self.name, self.size)
+        """A copy starts empty (a graph holds its module's addresses), over
+        the copied owner's modules: the owner's copy has copied them before
+        this attribute, so ``memo`` maps them to the copies."""
+        new = copy.copy(self)
+        new.graphs = collections.OrderedDict()
+        new.modules = copy.deepcopy(self.modules, memo)
+        return new

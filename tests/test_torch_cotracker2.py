@@ -1,5 +1,5 @@
 """The port's CoTracker2 (``models/cotracker2.py``) against the plain float32
-reference (``tests/cotracker2_reference.py``) on the CPU, at a small size
+reference (``benchmark/reference/cotracker2.py``) on the CPU, at a small size
 (hidden 32, 2 heads, 2 + 2 layers, 8 virtual tracks, 64x64 frames, 16
 tracks, 12 frames) with the reference's seeded weights; and kernel 5's
 border mode in its plain twin (``raft.lookup_correlation_otf``) against
@@ -21,7 +21,9 @@ from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
     lookup_correlation_cuda,
     staged_share,
 )
-from tests import cotracker2_reference as ref
+from chip_smoke import cotracker2_reference
+
+ref = cotracker2_reference()
 
 SMALL = dict(model_resolution=[64, 64], stride=4, latent_dim=128,
              hidden_size=32, num_heads=2, time_depth=2, space_depth=2,

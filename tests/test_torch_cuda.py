@@ -42,13 +42,18 @@ from feature_tracker_tpu_torch.utils import profiling
 from chip_smoke import (
     boundary_locations,
     brief_pipeline,
+    cotracker2_reference,
     cotracker_clip,
     lookup_inputs,
     render_plane,
     scattered_locations,
     small_quat,
 )
-from synthetic import Texture, se2_pair, translated_pair
+from synthetic import (
+    Texture,
+    se2_pair,
+    translated_pair,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -686,6 +691,33 @@ def test_inputs_the_new_kernels_cannot_take_raise(pair):
            skip)
 
 
+def test_warp_kernels_launch_inside_the_launch_span(pair):
+    """Kernels 3 and 4 launch through ``ops/_launch.py`` as kernel 1 does:
+    each call of their four wrappers is one ``klt.launch`` span and one
+    launch."""
+    rp, cp = pair
+    uv = torch.full((8, 2), 60.0, device="cuda")
+    eye = torch.eye(2, device="cuda").repeat(8, 1, 1)
+    skip = torch.zeros(8, dtype=torch.bool, device="cuda")
+    calls = [(cuda_warp_klt.affine_track_pyramid_cuda,
+              (KltOptions(), rp, cp, uv, uv, eye, skip)),
+             (cuda_warp_klt.affine_track_level_cuda,
+              (KltOptions(), rp[0], cp[0], uv, uv, eye, skip)),
+             (cuda_warp_klt.lssd_track_pyramid_cuda,
+              (KltOptions(), False, rp, cp, uv, uv, eye, skip)),
+             (cuda_warp_klt.lssd_track_level_cuda,
+              (KltOptions(), True, rp[0], cp[0], uv, eye, uv - 60.0, skip))]
+    profiling.reset()
+    profiling.enable()
+    for wrapper, args in calls:
+        before = wrapper.launches
+        wrapper(*args)
+        assert wrapper.launches == before + 1
+    torch.cuda.synchronize()
+    snap = profiling.snapshot()
+    assert [snap.names[i] for i in snap.name] == ["klt.launch"] * 4
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -834,19 +866,18 @@ def test_cotracker2_on_cuda_matches_reference(card):
     plain reference on the card, each window from the port's carried
     state: both float32, the gap is the order of sums (~1e-4 px on the
     CPU); and in bfloat16 it runs, its grid of tracks staged whole."""
-    from cotracker2_reference import CoTracker2Reference, draw_weights
-
     from feature_tracker_tpu_torch.models.cotracker2 import (
         CoTracker2,
         CoTracker2Config,
         CoTracker2Online,
     )
 
+    ref = cotracker2_reference()
     cfg = dict(model_resolution=[64, 96], stride=4, latent_dim=128,
                hidden_size=64, num_heads=4, time_depth=2, space_depth=2,
                mlp_ratio=4.0, num_virtual_tracks=8, window_len=8,
                corr_levels=4, corr_radius=3, input_dim=456, iterations=4)
-    weights = draw_weights(cfg, 48, card)
+    weights = ref.draw_weights(cfg, 48, card)
     rng = np.random.default_rng(49)
     base = torch.from_numpy(rng.uniform(0, 255, (1, 3, 24, 40)).astype(
         np.float32))
@@ -857,7 +888,7 @@ def test_cotracker2_on_cuda_matches_reference(card):
                          indexing="ij")
     q = np.stack([np.zeros(64), xs.ravel(), ys.ravel()], -1)
     q[:4, 0] = [3, 5, 8, 10]
-    reference = CoTracker2Reference(weights, cfg, card)
+    reference = ref.CoTracker2Reference(weights, cfg, card)
     for dtype in (torch.float32, torch.bfloat16):
         model = CoTracker2(CoTracker2Config(**dict(
             cfg, model_resolution=(64, 96), dtype=dtype)), device=card)
@@ -1046,6 +1077,33 @@ def test_raft_update_graph_outputs_held_across_calls(card):
     for got, eager in zip(second, want[1]):
         assert torch.equal(got, eager.detach())
     assert not torch.equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("padding", ["zeros", "border"])
+def test_raft_lookup_launch_replays_in_a_cuda_graph(card, padding):
+    """The launch takes the stream current at the call and reads nothing
+    back, so one lookup captured in a CUDA graph replays to the eager
+    call's bits, also after new locations are copied into its input."""
+    f0, pyr, locs = lookup_inputs(card, 40, 2, 16, 24, 128, 3, spread=2.0)
+    want = lookup_correlation_cuda(f0, pyr, locs, 3, padding)
+    moved = locs + 1.5
+    want_moved = lookup_correlation_cuda(f0, pyr, moved, 3, padding)
+    static = locs.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        lookup_correlation_cuda(f0, pyr, static, 3, padding)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = lookup_correlation_cuda(f0, pyr, static, 3, padding)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    static.copy_(moved)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want_moved) and not torch.equal(out, want)
 
 
 def test_raft_lookup_inputs_the_kernel_cannot_take_raise(card):

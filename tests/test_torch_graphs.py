@@ -1,15 +1,17 @@
-"""The update block's graph path (``utils/graphs.py::GraphCache`` under
-``models/raft.py::UpdateBlock``) on the CPU: when it engages, and, with a
-stand-in for a captured graph that re-runs the block on the graph's own
-tensors at each replay, what the cache copies, keeps and returns, against
-the eager block. Inputs that say they are on the card stand in for the
-card's; its own graphs are checked in ``test_torch_cuda.py``. The file
-imports no JAX."""
+"""The graph path (``utils/graphs.py::GraphCache``) on the CPU: when it
+engages under ``models/raft.py::UpdateBlock``, what keys a graph of the
+update block and of CoTracker2's former, and, with a stand-in for a
+captured graph that re-runs the block on the graph's own tensors at each
+replay, what the cache copies, keeps and returns, against the eager block.
+Inputs that say they are on the card stand in for the card's; its own
+graphs are checked in ``test_torch_cuda.py``. The file imports no JAX."""
+
+import copy
 
 import pytest
 import torch
 
-from feature_tracker_tpu_torch.models import raft
+from feature_tracker_tpu_torch.models import cotracker2, raft
 from feature_tracker_tpu_torch.utils import graphs, profiling
 
 from synthetic import translated_pair
@@ -51,16 +53,16 @@ def _block_inputs(seed, b=1, h=6, on_card=True):
     return tuple(t.as_subclass(_OnCard) for t in x) if on_card else x
 
 
-def _graph_calls(monkeypatch, block):
-    """Record the calls that reach ``block``'s graphs, running its eager
-    body in their place."""
+def _graph_calls(monkeypatch):
+    """Record the signatures (``GraphCache.signature``) of the calls that
+    reach a graph cache, running the eager function in their place."""
     seen = []
 
-    def graphs(fn, key, inputs, dtypes, reuse):
-        seen.append(key)
+    def replay(cache, fn, inputs, dtypes=None, reuse=False):
+        seen.append(cache.signature(inputs))
         return fn(*inputs)
 
-    monkeypatch.setattr(block, "_graphs", graphs)
+    monkeypatch.setattr(graphs.GraphCache, "__call__", replay)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: False)
     return seen
@@ -131,6 +133,9 @@ def test_raft_calls_replay_with_the_eager_flows(copies):
     (``net`` is the graph's own, ``inp`` the same tensor)."""
     torch.manual_seed(0)
     model = raft.Raft(CFG, device="cpu")
+    # Kernel 5's plain twin stands in for the kernel, as ``copies`` does
+    # for a captured graph.
+    model.lookup_fn = raft.lookup_correlation_otf
     ref, cur = _images()
     profiling.enable()
     got = [model(ref, cur) for _ in range(2)]
@@ -200,12 +205,12 @@ def test_update_graph_stays_off_on_cpu_in_training_with_grad_or_bands(
         model(ref[None, ..., None], cur[None, ..., None])
         assert not block._graphs.graphs
     elif case == "train":
-        seen = _graph_calls(monkeypatch, block)
+        seen = _graph_calls(monkeypatch)
         flows, _ = model(*_images(), train=True)
         assert flows.is_cuda and flows.shape[0] == CFG.max_iterations
         assert seen == []
     else:
-        seen = _graph_calls(monkeypatch, block)
+        seen = _graph_calls(monkeypatch)
         bands = _OneBand() if case == "bands" else None
         with torch.inference_mode(case == "bands"):
             got = block(*_block_inputs(5), bands)
@@ -221,8 +226,65 @@ def test_update_graph_engages_in_inference_on_the_card(monkeypatch):
     ``bands``; each call reaches the graphs with its signature, and a call
     of another shape with another."""
     block = raft.Raft(CFG, device="cpu").UpdateBlock_0
-    seen = _graph_calls(monkeypatch, block)
+    seen = _graph_calls(monkeypatch)
     for b in (1, 1, 2):
         with torch.no_grad():
             block(*_block_inputs(6, b))
     assert len(seen) == 3 and seen[0] == seen[1] != seen[2]
+
+
+def _graph_owner(name):
+    """A module that owns a graph cache, and inputs of one of its calls."""
+    torch.manual_seed(0)
+    if name == "update_block":
+        return raft.UpdateBlock(CFG), _block_inputs(7, on_card=False)
+    cfg = cotracker2.CoTracker2Config(hidden_size=32, num_heads=2,
+                                      time_depth=2, space_depth=2,
+                                      num_virtual_tracks=4, input_dim=24)
+    former = cotracker2.EfficientUpdateFormer(cfg)
+    return former, (torch.zeros(5, 8, 24), torch.ones(8, 5, dtype=torch.bool))
+
+
+SWITCHES = {"cudnn.enabled": (torch.backends.cudnn, "enabled"),
+            "cudnn.benchmark": (torch.backends.cudnn, "benchmark"),
+            "cudnn.deterministic": (torch.backends.cudnn, "deterministic"),
+            "cudnn.allow_tf32": (torch.backends.cudnn, "allow_tf32"),
+            "matmul.allow_tf32": (torch.backends.cuda.matmul, "allow_tf32")}
+
+
+@pytest.mark.parametrize("change", [*SWITCHES, "parameter moved",
+                                    "parameter replaced"])
+@pytest.mark.parametrize("owner", ["update_block", "former"])
+def test_each_switch_and_parameter_address_keys_a_new_graph(monkeypatch,
+                                                            owner, change):
+    """Flipping any one backend switch that picks kernels, or moving or
+    replacing one of the owner's parameters, gives the same inputs a new
+    signature."""
+    module, inputs = _graph_owner(owner)
+    cache = module._graphs
+    before = cache.signature(inputs)
+    assert cache.signature(inputs) == before
+    if change in SWITCHES:
+        switches, name = SWITCHES[change]
+        monkeypatch.setattr(switches, name, not getattr(switches, name))
+    elif change == "parameter moved":
+        param = list(module.parameters())[-1]
+        param.data = param.data.clone()
+    else:
+        path, param = list(module.named_parameters())[-1]
+        parent, _, leaf = path.rpartition(".")
+        setattr(module.get_submodule(parent), leaf,
+                torch.nn.Parameter(param.detach().clone()))
+    assert cache.signature(inputs) != before
+
+
+@pytest.mark.parametrize("owner", ["update_block", "former"])
+def test_a_copied_module_keys_its_graphs_by_its_own_parameters(owner):
+    module, inputs = _graph_owner(owner)
+    module._graphs.graphs[module._graphs.signature(inputs)] = None
+    twin = copy.deepcopy(module)
+    assert not twin._graphs.graphs and module._graphs.graphs
+    modules = list(twin.modules())
+    assert len(twin._graphs.modules) == len(modules) > 1
+    assert all(a is b for a, b in zip(twin._graphs.modules, modules))
+    assert twin._graphs.signature(inputs) != module._graphs.signature(inputs)

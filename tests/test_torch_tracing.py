@@ -15,11 +15,21 @@ import pytest
 import torch
 from torch.overrides import TorchFunctionMode
 
-from feature_tracker_tpu_torch.core.config import HarrisOptions, KltOptions
+from feature_tracker_tpu_torch.core.config import (
+    HarrisOptions,
+    KltMethod,
+    KltOptions,
+)
 from feature_tracker_tpu_torch.models import raft
-from feature_tracker_tpu_torch.ops import cuda_klt, detect
+from feature_tracker_tpu_torch.ops import (
+    cuda_klt,
+    cuda_raft_lookup,
+    cuda_warp_klt,
+    detect,
+)
 from feature_tracker_tpu_torch.ops.pyramid import build_pyramid
 from feature_tracker_tpu_torch.pipeline import FrontEndConfig, TrackingFrontEnd
+from feature_tracker_tpu_torch.trackers.klt import affine, basic, lssd
 from feature_tracker_tpu_torch.trackers.klt.basic import (
     track_pyramid_fast_reference,
 )
@@ -58,38 +68,62 @@ def _names(snap, mask=None):
     return [snap.names[i] for i in ids]
 
 
-class _FakeFastLibrary:
-    """Stands in for kernel 1's library: records each call's arguments and,
-    given a counter row, adds ``steps`` and ``lanes`` to it as the kernel
-    would."""
+class _FakeLibrary:
+    """Stands in for a kernel's library: records each call of an entry
+    (``functions``, ``calls``: its arguments) and returns success; given a
+    counter row, kernel 1's entry adds ``steps`` and ``lanes`` to it as the
+    kernel would."""
 
     def __init__(self, steps=7, lanes=3):
-        self.calls, self.steps, self.lanes = [], steps, lanes
+        self.functions, self.calls = [], []
+        self.steps, self.lanes = steps, lanes
 
-    def ftk_klt_fast_pyramid(self, *args):
-        self.calls.append(args)
-        if args[-1] is not None:
-            row = (ctypes.c_longlong * 2).from_address(args[-1])
-            row[0] += self.steps
-            row[1] += self.lanes
-        return 0
+    def __getattr__(self, function):
+        def entry(*args):
+            self.functions.append(function)
+            self.calls.append(args)
+            if function == "ftk_klt_fast_pyramid" and args[-1] is not None:
+                row = (ctypes.c_longlong * 2).from_address(args[-1])
+                row[0] += self.steps
+                row[1] += self.lanes
+            return 0
+        return entry
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card, so that a kernel's wrapper
+    takes its launch path (with a stand-in library: :func:`_on_card`)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+_STREAM = object()      # the stand-in current stream's handle
+
+
+def _on_card(monkeypatch, kernel, lib):
+    """``kernel`` takes ``lib`` for its library, and the CUDA device and
+    stream calls are inert, with ``_STREAM`` for the current stream."""
+    monkeypatch.setattr(kernel, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=_STREAM))
 
 
 def _fake_launch(monkeypatch, lib, calls=1):
-    """Run ``_launch_pyramid`` on CPU tensors with ``lib`` in place of the
-    library and the CUDA stream calls made inert; returns the last
-    pointer argument of each call."""
-    monkeypatch.setattr(cuda_klt.torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(cuda_klt.torch.cuda, "current_stream",
-                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    """Launch kernel 1 through its wrapper on CPU tensors that say they
+    are on the card, with ``lib`` in place of its library
+    (:func:`_on_card`); returns the last pointer argument of each call."""
+    _on_card(monkeypatch, cuda_klt.FAST, lib)
     pyr = tuple(torch.zeros(32 >> k, 32 >> k) for k in range(2))
-    uv = torch.full((3, 2), 8.0)
+    uv = torch.full((3, 2), 8.0).as_subclass(_OnCard)
     skip = torch.zeros(3, dtype=torch.bool)
     for _ in range(calls):
         with profiling.span("test.call"):
-            cuda_klt._launch_pyramid("test", KltOptions(), pyr, pyr, uv, uv,
-                                     None, skip, lib=lib)
+            cuda_klt.track_pyramid_fast_cuda(KltOptions(), pyr, pyr, uv, uv,
+                                             skip)
     return [c[-1] for c in lib.calls]
 
 
@@ -101,7 +135,7 @@ def test_off_by_default_records_nothing(monkeypatch):
     assert snap.calls == 0 and snap.name.size == 0
     assert snap.count_n.size == 0 and snap.counters == {}
     # Kernel 1 is handed a null counter pointer.
-    assert _fake_launch(monkeypatch, _FakeFastLibrary()) == [None]
+    assert _fake_launch(monkeypatch, _FakeLibrary()) == [None]
     assert profiling.snapshot().name.size == 0
 
 
@@ -348,7 +382,7 @@ def test_kernel_counter_rows_by_call(monkeypatch):
     """With tracing on, each launch gets its own row of the device ring, and
     the snapshot adds the rows to the counters of their calls."""
     profiling.enable()
-    lib = _FakeFastLibrary(steps=7, lanes=3)
+    lib = _FakeLibrary(steps=7, lanes=3)
     pointers = _fake_launch(monkeypatch, lib, calls=3)
     assert None not in pointers and len(set(pointers)) == 3
     assert pointers[1] - pointers[0] == 16
@@ -366,8 +400,130 @@ def test_kernel_counter_rows_by_call(monkeypatch):
 def test_kernel_ring_starts_a_new_lap_from_zero(monkeypatch):
     profiling.enable()
     monkeypatch.setattr(profiling._TRACER, "kernel_rows", 2)
-    lib = _FakeFastLibrary(steps=1, lanes=1)
+    lib = _FakeLibrary(steps=1, lanes=1)
     _fake_launch(monkeypatch, lib, calls=3)
     snap = profiling.snapshot()
     assert snap.dropped["kernel_rows"] == 2
     assert snap.counters["klt.lanes"] == {2: 1}
+
+
+# --- The launch path of kernels 1-5 (ops/_launch.py) ------------------------
+
+WRAPPERS = ["fast", "iter", "affine_pyramid", "affine_level", "lssd_pyramid",
+            "lssd_level", "lookup"]
+
+
+def _wrapper_case(name, n):
+    """``(wrapper, kernel, plain version's module and name, arguments, index
+    of the argument whose device picks the path, output shapes)`` of the
+    wrapper ``name`` on ``n`` features (kernel 5: ``n`` rows of queries),
+    CPU tensors from a seed."""
+    g = torch.Generator().manual_seed(n)
+    img = torch.rand((32, 32), generator=g) * 255
+    pyr = (img, img[::2, ::2].contiguous())
+    uv = 8.0 + 16.0 * torch.rand((n, 2), generator=g)
+    eye = torch.eye(2).repeat(n, 1, 1)
+    skip = torch.zeros(n, dtype=torch.bool)
+    fast, uv2, st = KltOptions(), (n, 2), (n,)
+    if name == "fast":
+        return (cuda_klt.track_pyramid_fast_cuda, cuda_klt.FAST, basic,
+                "track_pyramid_fast_reference", (fast, pyr, pyr, uv, uv, skip),
+                3, [uv2, st])
+    if name == "iter":
+        status = torch.zeros(n, dtype=torch.int8)
+        return (cuda_klt.track_pyramid_iter_cuda, cuda_klt.ITER, basic,
+                "track_pyramid_iter_reference",
+                (KltOptions(method=KltMethod.DIRECT), pyr, pyr, uv, uv, status,
+                 skip), 3, [uv2, st])
+    if name == "affine_pyramid":
+        return (cuda_warp_klt.affine_track_pyramid_cuda, cuda_warp_klt.AFFINE,
+                affine, "affine_track_pyramid_reference",
+                (fast, pyr, pyr, uv, uv, eye, skip), 3, [uv2, (n, 2, 2), st])
+    if name == "affine_level":
+        return (cuda_warp_klt.affine_track_level_cuda, cuda_warp_klt.AFFINE,
+                affine, "affine_track_level_reference",
+                (fast, img, img, uv, uv, eye, skip), 3, [uv2, (n, 2, 2), st])
+    if name == "lssd_pyramid":
+        return (cuda_warp_klt.lssd_track_pyramid_cuda, cuda_warp_klt.LSSD,
+                lssd, "lssd_track_pyramid_reference",
+                (fast, False, pyr, pyr, uv, uv, eye, skip), 4,
+                [uv2, (n, 2, 2), st])
+    if name == "lssd_level":
+        return (cuda_warp_klt.lssd_track_level_cuda, cuda_warp_klt.LSSD,
+                lssd, "lssd_track_level_reference",
+                (fast, True, img, img, uv, eye, uv - 8.0, skip), 4,
+                [(n, 2, 2), uv2, st])
+    fmap0 = torch.randn((1, n, 5, 8), generator=g)
+    fpyr = [torch.randn((1, 6, 7, 8), generator=g),
+            torch.randn((1, 3, 4, 8), generator=g)]
+    locs = 6.0 * torch.rand((1, n, 5, 2), generator=g)
+    return (cuda_raft_lookup.lookup_correlation_cuda, cuda_raft_lookup.LOOKUP,
+            raft, "lookup_correlation_otf", (fmap0, fpyr, locs, 2, "border"),
+            0, [(1, n, 5, 2 * 25)])
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_cpu_calls_run_the_plain_version_inside_the_launch_span(
+        monkeypatch, name):
+    """A wrapper on CPU tensors returns its plain version's outputs, and
+    the plain version runs inside the kernel's launch span."""
+    wrapper, kernel, module, plain_name, args, _, _ = _wrapper_case(name, 3)
+    plain = getattr(module, plain_name)
+    want = _outputs(plain(*args))
+
+    def traced(*a, **kw):
+        with profiling.span("test.plain"):
+            return plain(*a, **kw)
+
+    monkeypatch.setattr(module, plain_name, traced)
+    profiling.enable()
+    got = _outputs(wrapper(*args))
+    snap = profiling.snapshot()
+    assert _names(snap) == [kernel.span, "test.plain"]
+    assert list(snap.parent) == [-1, 0]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_inputs_on_another_device_raise(name):
+    wrapper, _, _, _, args, x, _ = _wrapper_case(name, 3)
+    args = list(args)
+    args[x] = args[x].to("meta")
+    with pytest.raises(ValueError, match=f"^{wrapper.__name__}: unsupported "
+                                         "device meta"):
+        wrapper(*args)
+
+
+@pytest.mark.parametrize("n", [0, 3])
+@pytest.mark.parametrize("name", WRAPPERS)
+def test_card_calls_launch_once_with_work_and_never_without(monkeypatch,
+                                                            name, n):
+    """On the card (inputs that say so, a stand-in library): with no work
+    a wrapper returns empty outputs of its shapes, calls nothing and counts
+    nothing; with work it calls its entry once, with every argument of the
+    C signature and the current stream, inside its launch span, and counts
+    one launch."""
+    wrapper, kernel, _, _, args, x, shapes = _wrapper_case(name, n)
+    lib = _FakeLibrary()
+    _on_card(monkeypatch, kernel, lib)
+    args = list(args)
+    args[x] = args[x].as_subclass(_OnCard)
+    before = wrapper.launches
+    profiling.enable()
+    out = _outputs(wrapper(*args))
+    assert [tuple(t.shape) for t in out] == shapes
+    assert _names(profiling.snapshot()) == [kernel.span]
+    if n == 0:
+        assert lib.calls == [] and wrapper.launches == before
+        return
+    assert lib.functions == [kernel.function]
+    (c_args,) = lib.calls
+    assert len(c_args) == len(kernel.argtypes)
+    assert [a is _STREAM for a in c_args].count(True) == 1
+    assert wrapper.launches == before + 1
