@@ -24,7 +24,8 @@ Phases (any failed check raises, so the exit code is non-zero):
      to 0 just before and read just after:
      ``TrackingFrontEnd(FrontEndConfig(), device="cuda")`` over a 752x480
      sequence translating a little each frame (24 frames, one FAST launch
-     per tracked frame), and over 8 frames each with
+     per tracked frame and one launch of detection's suppression kernel,
+     kernel 6, per frame that replenishes), and over 8 frames each with
      ``tracker=BasicKlt(method=INVERSE)``, ``AffineKlt`` and ``LssdKlt``
      (one launch per tracked frame each): live tracks kept, the median
      tracked flow equal to the true shift, track ids kept across frames.
@@ -35,7 +36,13 @@ Phases (any failed check raises, so the exit code is non-zero):
      kernels line carries: a kernel shorter than its wrapper's enqueue on
      the host is timed by the host in a run of back-to-back calls), and
      torch.profiler windows over five headline kernel calls and ten more
-     front-end frames.
+     front-end frames. Then (4b) detection's suppression kernel (kernel 6)
+     against the plain path on the same ranked candidates of a front-end
+     frame (``HarrisOptions()`` at ``max_num`` 300, where the scan stops
+     early, and 2000; a 6 px distance, whose grid takes 197 KB of shared
+     memory; a 3 px one, its list path), bit for bit, its
+     device time per launch, and detection per call with the kernel and
+     with the plain path.
   5. RAFT inference. The correlation-lookup kernel against its plain
      version at the serving shape (batch 4, 55x128 queries, 128 channels,
      3 levels, radius 3), on locations that leave the map or are NaN,
@@ -684,6 +691,86 @@ def drive_front_end(label, fe, frames, wrapper, launches_per_frame,
     check(min(kept) >= min_live // 2,
           f"{label}: only {min(kept)} tracks survived a frame")
     return launches, results, frame_s
+
+
+def replenished_frames(results, min_live):
+    """How many frames of a front-end run replenished: the first, and each
+    whose surviving tracks (alive before and after, with an id handed out
+    before this frame) fell below ``min_live``."""
+    from feature_tracker_tpu_torch.core.status import TrackStatus
+
+    n = 1
+    for prev, res in zip(results, results[1:]):
+        old = (prev.track_ids >= 0) & (res.track_ids >= 0) & (
+            res.track_ids <= prev.track_ids.max())
+        n += int((old & (res.status == int(TrackStatus.TRACKED))).sum()
+                 < min_live)
+    return n
+
+
+def suppression_phase(dev, card, frames, launches):
+    """Phase 4b: kernel 6 against the plain path (``ops/detect.py::
+    suppress_candidates``) on the same ranked candidates of the front end's
+    first frame, bit for bit; its device time per launch (profiler), and
+    detection per call with the kernel and with the plain path (host clock
+    to a synchronise, median of 20). Returns its entry of the kernels line,
+    with ``launches``, its launches on the main path (phase 3)."""
+    from feature_tracker_tpu_torch.core.config import HarrisOptions
+    from feature_tracker_tpu_torch.ops import cuda_detect, detect
+
+    wrapper = cuda_detect.suppress_candidates_cuda
+    t = torch.as_tensor(frames[0], device=dev)
+    shape = tuple(t.shape)
+
+    def detect_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times)) * 1e3
+
+    def plain_detect(opts, max_num):
+        ranked = detect.ranked_candidates(t, opts)
+        return detect.suppress_candidates(*ranked, shape, max_num,
+                                          opts.min_feature_distance)
+
+    entry = None
+    for label, opts, max_num in (
+            ("front end", HarrisOptions(), 300),
+            ("no early stop", HarrisOptions(), 2000),
+            ("6 px, a 197 KB grid", HarrisOptions(min_feature_distance=6),
+             5000),
+            ("3 px, list path", HarrisOptions(min_feature_distance=3), 5000)):
+        args = (*detect.ranked_candidates(t, opts), shape, max_num,
+                opts.min_feature_distance)
+        got, want = wrapper(*args), detect.suppress_candidates(*args)
+        check(torch.equal(got[0], want[0]) and int(got[1]) == int(want[1]),
+              f"kernel 6 ({label}): not the plain path's uv and num")
+        k_ms = queued_ms(lambda: wrapper(*args))
+        k_dev = device_ms(lambda: wrapper(*args), "detect_suppress_kernel",
+                          k_ms)
+        with_kernel = detect_ms(lambda: detect.detect_good_features(
+            t, max_num, opts, device=dev))
+        plain = detect_ms(lambda: plain_detect(opts, max_num))
+        print(f"[time] suppression kernel {shape[1]}x{shape[0]}, {label} "
+              f"(max_num {max_num}, distance {opts.min_feature_distance}): kept "
+              f"{int(got[1])}, the plain path's bits; {k_dev * 1e3:.2f} us "
+              f"device time per launch (profiler), {k_ms * 1e3:.2f} us "
+              f"queued; detect_good_features {with_kernel:.4f} ms per call, "
+              f"with the plain path {plain:.4f} ms; {card}")
+        if entry is None:
+            entry = {"name": "detect_suppress", "route": "cuda",
+                     "source": "feature_tracker_tpu_torch/csrc/"
+                               "detect_suppress.cu",
+                     "replaces": None, "max_abs_err": 0.0, "ms": k_dev,
+                     "plain_ms": plain, "detect_ms": with_kernel,
+                     "bound_ms": None, "bound_by": None, "library_ms": None,
+                     "launches": launches}
+    return entry
 
 
 def profile_window(label: str, fn, calls: int) -> None:
@@ -4020,6 +4107,7 @@ def main() -> int:
     from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
     from feature_tracker_tpu_torch.ops import (
         _build,
+        cuda_detect,
         cuda_klt,
         cuda_raft_lookup,
         cuda_warp_klt,
@@ -4062,12 +4150,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = [cuda_klt.FAST, cuda_klt.ITER, cuda_warp_klt.AFFINE,
                cuda_warp_klt.LSSD, cuda_raft_lookup.LOOKUP]
-    libraries = [k.library for k in kernels]
+    libraries = [k.library for k in kernels] + [cuda_detect.SUPPRESS.library]
     # And the redesigned kernels once more with phase clocks compiled in,
     # for the profiles printed with their timings.
     profiled = [k.phase_clock_spec() for k in kernels]
     lib_paths = _build.build_libraries(libraries + profiled)[:len(libraries)]
-    for k in kernels:
+    for k in kernels + [cuda_detect.SUPPRESS]:
         k.load()
     print(f"[build] {len(lib_paths)} libraries (and {len(profiled)} with "
           "phase clocks) ready in "
@@ -4082,7 +4170,7 @@ def main() -> int:
                     if "Compiling entry" in line:
                         # The kernel's name inside the mangled one.
                         found = re.findall(
-                            r"\d((?:klt|raft)_[a-z_]+_kernel"
+                            r"\d((?:klt|raft|detect)_[a-z_]+_kernel"
                             r"(?:ILi\d+ELi\d+E)?)", line)
                         print("[build]   kernel "
                               f"{found[-1] if found else line}")
@@ -4190,9 +4278,17 @@ def main() -> int:
 
     frames = [render(t) for t in range(FRAMES)]
     fe = TrackingFrontEnd(cfg, device="cuda")
-    launches, _, frame_s = drive_front_end(
+    cuda_detect.suppress_candidates_cuda.launches = 0
+    launches, results, frame_s = drive_front_end(
         "basic FAST", fe, frames, cuda_klt.track_pyramid_fast_cuda, 1,
         cfg.min_live_tracks, FRAME_SHIFT)
+    detect_launches = cuda_detect.suppress_candidates_cuda.launches
+    replenished = replenished_frames(results, cfg.min_live_tracks)
+    check(detect_launches == replenished,
+          f"basic FAST: {detect_launches} launches of kernel 6 over "
+          f"{replenished} replenishing frames, expected one each")
+    print(f"[front end] basic FAST: {replenished} of {len(frames)} frames "
+          f"replenished, kernel 6 launches={detect_launches}")
     path_launches = {}
     for label, tracker, wrapper, per_frame in (
             ("basic INVERSE",
@@ -4397,6 +4493,7 @@ def main() -> int:
                 "ms": k_dev, "plain_ms": k_plain, "bound_ms": k_bound,
                 "bound_by": k_by, "library_ms": None,
             })
+    kernels.append(suppression_phase(dev, card, frames, detect_launches))
     clock_line("after the KLT timings")
     print(f"[time] card: {card}")
 
@@ -4423,7 +4520,7 @@ def main() -> int:
                                                      weights_before)
     demo_launches = demo_paths(dev, card)
     for k in kernels:
-        if demo_launches[k["name"]]:
+        if demo_launches.get(k["name"]):
             k["demo_launches"] = demo_launches[k["name"]]
     script_launches = script_paths(dev, card)
     for k in kernels:
@@ -4433,7 +4530,7 @@ def main() -> int:
         if k["name"] in sharded:
             k["sharded_launches"] = sharded[k["name"]]
 
-    check(len(kernels) == 5 and all(k["launches"] > 0 for k in kernels),
+    check(len(kernels) == 6 and all(k["launches"] > 0 for k in kernels),
           "a kernel of the paths was not launched on its main path")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,4 @@
-"""How the host launches the port's hand-written kernels (kernels 1-5).
+"""How the host launches the port's hand-written kernels (kernels 1-6).
 
 Each kernel is one C entry ``ftk_*`` of a library that ``ops/_build.py``
 compiles from ``csrc/`` with ``nvcc`` at first use; it is called through

@@ -7,7 +7,9 @@ Pipeline (the JAX package's, step for step):
   3. 3x3 local-max NMS + response threshold,
   4. top-K candidates by response, ties broken by the lower flat index
      (``jax.lax.top_k``'s order; a stable descending sort gives it),
-  5. exact greedy radius suppression in score order.
+  5. exact greedy radius suppression in score order: on the card one
+     launch of ``csrc/detect_suppress.cu`` (``ops/cuda_detect.py``), with
+     no read of the device; on the CPU :func:`suppress_candidates`.
 
 The output has a fixed size: ``max_num`` slots padded with (-1, -1), plus
 a count.
@@ -124,6 +126,22 @@ def detect_good_features(img, max_num: int,
 def _detect(img, max_num: int, opts: HarrisOptions, device):
     dev = resolve_device(device)
     img = torch.as_tensor(img, dtype=torch.float32, device=dev)
+    top_scores, flat_idx = ranked_candidates(img, opts)
+    # Imported here: ops/cuda_detect.py imports this module.
+    from feature_tracker_tpu_torch.ops.cuda_detect import (
+        suppress_candidates_cuda,
+    )
+
+    return suppress_candidates_cuda(top_scores, flat_idx, tuple(img.shape),
+                                    max_num, opts.min_feature_distance)
+
+
+def ranked_candidates(img: torch.Tensor, opts: HarrisOptions):
+    """Steps 1-4 on a float32 ``[H, W]`` image: the scores of the top
+    ``k = min(max_candidates, H*W)`` pixels in descending order, ties to
+    the lower flat index, -inf where a pixel is no candidate (so the
+    valid ones are a prefix), and their flat indices (int64)."""
+    dev = img.device
     h, w = img.shape
     resp = shi_tomasi_response(img, opts.window_half_size)
 
@@ -142,7 +160,18 @@ def _detect(img, max_num: int, opts: HarrisOptions, device):
     k = min(opts.max_candidates, h * w)
     top_scores, flat_idx = torch.sort(scores.reshape(-1), descending=True,
                                       stable=True)
-    top_scores, flat_idx = top_scores[:k], flat_idx[:k]
+    return top_scores[:k], flat_idx[:k]
+
+
+def suppress_candidates(top_scores: torch.Tensor, flat_idx: torch.Tensor,
+                        shape, max_num: int, min_feature_distance):
+    """Step 5, the plain version: exact greedy radius suppression of the
+    ranked candidates of :func:`ranked_candidates` on an image of
+    ``shape`` ``(H, W)``, through :func:`greedy_suppression`. Returns
+    ``(uv, num)`` as :func:`detect_good_features` does. Its round tests and
+    selection read the device."""
+    dev = top_scores.device
+    w = shape[1]
     # Valid candidates form a prefix (invalid ones score -inf); the greedy
     # pass only needs that prefix.
     n_valid = host_value((top_scores > -torch.inf).sum())
@@ -151,7 +180,7 @@ def _detect(img, max_num: int, opts: HarrisOptions, device):
 
     # Greedy min-distance suppression in descending score order.
     d2 = ((cx[:, None] - cx[None, :]) ** 2 + (cy[:, None] - cy[None, :]) ** 2)
-    min_d2 = float(opts.min_feature_distance) ** 2
+    min_d2 = float(min_feature_distance) ** 2
     conflict = d2 < min_d2  # includes self
     keep = greedy_suppression(
         torch.ones(n_valid, dtype=torch.bool, device=dev), conflict)

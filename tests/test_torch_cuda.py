@@ -11,9 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from feature_tracker_tpu_torch.core.config import KltMethod, KltOptions
+from feature_tracker_tpu_torch.core.config import (
+    HarrisOptions,
+    KltMethod,
+    KltOptions,
+)
 from feature_tracker_tpu_torch.models import raft
-from feature_tracker_tpu_torch.ops import cuda_klt, cuda_warp_klt
+from feature_tracker_tpu_torch.ops import (
+    cuda_detect,
+    cuda_klt,
+    cuda_warp_klt,
+    detect,
+)
 from feature_tracker_tpu_torch.ops.cuda_raft_lookup import (
     lookup_correlation_cuda,
     staged_share,
@@ -54,6 +63,7 @@ from synthetic import (
     se2_pair,
     translated_pair,
 )
+from torch_detect_cases import ring_points, tied_blobs
 
 pytestmark = pytest.mark.cuda
 
@@ -1870,3 +1880,114 @@ def test_raft_frames_of_any_dtype_are_made_float32_on_the_card(card, dtype):
         got = raft._normalised_frames(img, card, out)
         assert got.device.type == "cuda" and got.dtype == out
         assert torch.equal(got, _parent_frames(img, card, out))
+
+
+# Kernel 6: detection's greedy suppression against the plain path on the
+# same CUDA candidates.
+
+def _front_end_frame():
+    """A 752x480 frame of the front end's texture (the benchmark's)."""
+    return Texture(0, n_waves=16, min_period=5.0, max_period=30.0).render(
+        480, 752)
+
+
+def _suppression_case(name):
+    """``(image, HarrisOptions, max_num)`` of a card test of kernel 6."""
+    if name == "translated_pair":
+        return (translated_pair(h=120, w=160)[0],
+                HarrisOptions(min_feature_distance=10,
+                              min_valid_response=20.0), 100)
+    if name == "tied":
+        return (tied_blobs(), HarrisOptions(min_feature_distance=12,
+                                            min_valid_response=10.0), 40)
+    if name == "front_end":             # the early stop engages
+        return _front_end_frame(), HarrisOptions(), 300
+    if name == "room":                  # max_num above the kept count
+        return _front_end_frame(), HarrisOptions(), 2000
+    if name == "blank":
+        return np.zeros((480, 752), np.float32), HarrisOptions(), 300
+    if name == "small":                 # fewer pixels than max_candidates
+        return (np.random.default_rng(5).uniform(0, 255, (40, 56)).astype(
+            np.float32), HarrisOptions(min_feature_distance=4,
+                                       min_valid_response=10.0), 200)
+    if name == "fine_grid":             # a grid beyond 48 KB
+        return _front_end_frame(), HarrisOptions(min_feature_distance=6), 5000
+    # A distance whose grid exceeds the kernel's: its list path.
+    return _front_end_frame(), HarrisOptions(min_feature_distance=3), 5000
+
+
+@pytest.mark.parametrize("case", ["translated_pair", "tied", "front_end",
+                                  "room", "blank", "small", "fine_grid",
+                                  "list"])
+def test_suppression_kernel_is_the_plain_path(card, case):
+    img, opts, max_num = _suppression_case(case)
+    t = torch.as_tensor(img, device=card)
+    scores, idx = detect.ranked_candidates(t, opts)
+    shape, dist = tuple(t.shape), opts.min_feature_distance
+    want_uv, want_num = detect.suppress_candidates(scores, idx, shape,
+                                                   max_num, dist)
+    before = cuda_detect.suppress_candidates_cuda.launches
+    uv, num = cuda_detect.suppress_candidates_cuda(scores, idx, shape,
+                                                   max_num, dist)
+    assert cuda_detect.suppress_candidates_cuda.launches == before + 1
+    assert uv.is_cuda and num.dtype == torch.int32 and num.dim() == 0
+    assert torch.equal(uv, want_uv) and int(num) == int(want_num)
+    kept = int(want_num)
+    layout = cuda_detect.grid_layout(shape,
+                                     cuda_detect.conflict_threshold(dist))
+    assert (layout is None) == (case == "list")
+    if case == "fine_grid":
+        cells = layout[1] * layout[2]
+        assert cells * 4 * (1 + cuda_detect.SLOTS) > 48 * 1024
+    all_kept = int(detect.suppress_candidates(scores, idx, shape, 10 ** 4,
+                                              dist)[1])
+    if case == "front_end":
+        assert kept == max_num < all_kept
+    elif case == "blank":
+        assert kept == 0 and (uv == -1).all()
+    else:
+        assert 10 < kept == all_kept < max_num
+    if case == "small":
+        assert scores.numel() == 40 * 56 < opts.max_candidates
+    if case == "tied":
+        resp = detect.shi_tomasi_response(t)
+        sel = uv[:kept].long()
+        assert len(torch.unique(resp[sel[:, 1], sel[:, 0]])) < kept
+
+
+def test_suppression_kernel_keeps_pairs_exactly_the_distance_apart(card):
+    """Ranked candidates round three centres: points exactly 25 px from a
+    kept one are kept (the test is strict), nearer ones are not."""
+    w = 752
+    xy = np.concatenate([ring_points((300, 200)), ring_points((700, 30)),
+                         ring_points((30, 455))])
+    idx = torch.tensor(list(xy[:, 1] * w + xy[:, 0]) + [0, 1, 2],
+                       device=card)
+    scores = torch.linspace(100.0, 1.0, len(idx), device=card)
+    scores[-3:] = -torch.inf
+    for max_num in (3, 300):
+        want = detect.suppress_candidates(scores, idx, (480, w), max_num, 25)
+        got = cuda_detect.suppress_candidates_cuda(scores, idx, (480, w),
+                                                   max_num, 25)
+        assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    kept = {tuple(p) for p in got[0][:int(got[1])].long().tolist()}
+    assert {(300, 200), (325, 200), (300, 225), (275, 200),
+            (300, 175)} <= kept
+    assert (324, 200) not in kept and (300, 176) not in kept
+
+
+def test_card_detection_reads_nothing_back(card):
+    """On the card a detection makes no host sync: the kernel's launch
+    counts once a call and no suppression round is counted."""
+    t = torch.as_tensor(_front_end_frame(), device=card)
+    want = detect.detect_good_features(t, 300, device=card)
+    torch.cuda.synchronize()
+    profiling.enable()
+    for _ in range(3):
+        uv, num = detect.detect_good_features(t, 300, device=card)
+    snap = profiling.snapshot()
+    assert snap.calls == 3 and snap.select("detect.features").sum() == 3
+    assert snap.counter("host_syncs") == 0
+    assert snap.counter("detect.suppression_rounds") == 0
+    assert snap.counters[cuda_detect.COUNTER] == {0: 1, 1: 1, 2: 1}
+    assert torch.equal(uv, want[0]) and int(num) == int(want[1]) == 300

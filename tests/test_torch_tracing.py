@@ -22,6 +22,7 @@ from feature_tracker_tpu_torch.core.config import (
 )
 from feature_tracker_tpu_torch.models import raft
 from feature_tracker_tpu_torch.ops import (
+    cuda_detect,
     cuda_klt,
     cuda_raft_lookup,
     cuda_warp_klt,
@@ -269,10 +270,11 @@ def test_front_end_frame_spans_and_counts():
         assert names.count("frontend.frame") == 1
         if call == 0:
             assert set(names) == {"frontend.frame", "frontend.upload",
-                                  "pyramid.build", "detect.features"}
+                                  "pyramid.build", "detect.features",
+                                  "detect.suppress"}
         else:
             assert FRAME_SPANS <= set(names) <= FRAME_SPANS | {
-                "detect.features"}
+                "detect.features", "detect.suppress"}
             # The frame's upload, then the lanes'.
             assert names.count("frontend.upload") == 2
         frame = np.flatnonzero(snap.select("frontend.frame", (call,
@@ -407,17 +409,17 @@ def test_kernel_ring_starts_a_new_lap_from_zero(monkeypatch):
     assert snap.counters["klt.lanes"] == {2: 1}
 
 
-# --- The launch path of kernels 1-5 (ops/_launch.py) ------------------------
+# --- The launch path of kernels 1-6 (ops/_launch.py) ------------------------
 
 WRAPPERS = ["fast", "iter", "affine_pyramid", "affine_level", "lssd_pyramid",
-            "lssd_level", "lookup"]
+            "lssd_level", "lookup", "suppress"]
 
 
 def _wrapper_case(name, n):
     """``(wrapper, kernel, plain version's module and name, arguments, index
     of the argument whose device picks the path, output shapes)`` of the
-    wrapper ``name`` on ``n`` features (kernel 5: ``n`` rows of queries),
-    CPU tensors from a seed."""
+    wrapper ``name`` on ``n`` features (kernel 5: ``n`` rows of queries;
+    kernel 6: ``n`` ranked candidates), CPU tensors from a seed."""
     g = torch.Generator().manual_seed(n)
     img = torch.rand((32, 32), generator=g) * 255
     pyr = (img, img[::2, ::2].contiguous())
@@ -453,6 +455,12 @@ def _wrapper_case(name, n):
                 lssd, "lssd_track_level_reference",
                 (fast, True, img, img, uv, eye, uv - 8.0, skip), 4,
                 [(n, 2, 2), uv2, st])
+    if name == "suppress":
+        scores = torch.sort(torch.rand(n, generator=g), descending=True)[0]
+        flat = torch.randperm(32 * 32, generator=g)[:n]
+        return (cuda_detect.suppress_candidates_cuda, cuda_detect.SUPPRESS,
+                detect, "suppress_candidates", (scores, flat, (32, 32), 4, 5),
+                0, [(4, 2), ()])
     fmap0 = torch.randn((1, n, 5, 8), generator=g)
     fpyr = [torch.randn((1, 6, 7, 8), generator=g),
             torch.randn((1, 3, 4, 8), generator=g)]
@@ -527,3 +535,39 @@ def test_card_calls_launch_once_with_work_and_never_without(monkeypatch,
     assert len(c_args) == len(kernel.argtypes)
     assert [a is _STREAM for a in c_args].count(True) == 1
     assert wrapper.launches == before + 1
+
+
+def test_suppression_kernel_launch_reads_nothing_and_counts_once(
+        monkeypatch):
+    """Kernel 6's launch on the card (inputs that say so, a stand-in
+    library): the C arguments carry the candidates, the image's size, the
+    integer conflict threshold, ``grid_layout``'s grid (zeros for the list
+    path) and ``max_num``; nothing is read back, and
+    ``detect.suppression_kernel`` counts 1 a launch (0 for a call with no
+    candidate, which launches nothing)."""
+    lib = _FakeLibrary()
+    _on_card(monkeypatch, cuda_detect.SUPPRESS, lib)
+    scores = torch.tensor([9.0, 8.0, 7.0, -torch.inf]).as_subclass(_OnCard)
+    flat = torch.tensor([100, 900, 5000, 0])
+    profiling.enable()
+    for call in range(3):
+        with profiling.span("detect.features"):
+            uv, num = cuda_detect.suppress_candidates_cuda(
+                scores, flat, (480, 752), 300, 25)
+    with profiling.span("detect.features"):
+        empty = cuda_detect.suppress_candidates_cuda(
+            scores[:0], flat[:0], (480, 752), 300, 25)
+    snap = profiling.snapshot()
+    assert tuple(uv.shape) == (300, 2) and uv.dtype == torch.float32
+    assert num.dtype == torch.int32 and num.dim() == 0
+    assert (empty[0] == -1).all() and int(empty[1]) == 0
+    assert snap.counter("host_syncs") == 0
+    assert snap.counters[cuda_detect.COUNTER] == {0: 1, 1: 1, 2: 1, 3: 0}
+    assert len(lib.calls) == 3
+    ptr_s, ptr_i, k, h, w, threshold, *layout, max_num = lib.calls[0][:10]
+    assert (ptr_s, ptr_i) == (scores.data_ptr(), flat.data_ptr())
+    assert (k, h, w, threshold, max_num) == (4, 480, 752, 625, 300)
+    assert layout == [25, 31, 20]
+    # A distance whose grid would not fit shared memory: the list path.
+    cuda_detect.suppress_candidates_cuda(scores, flat, (480, 752), 300, 3)
+    assert lib.calls[-1][5:9] == (9, 0, 0, 0)
