@@ -102,7 +102,16 @@ Phases (any failed check raises, so the exit code is non-zero):
      with 24 queries and on 24 frames of 384x512 with 256 queries (each
      iteration from the CPU's positions within 1e-3 px and 1e-3 in the
      visibility logits; the whole run within those or twice the card's
-     own spread under a one-ulp change of the video).
+     own spread under a one-ulp change of the video). Then (7e)
+     SuperPoint at the inputs of the benchmark cell
+     ``superpoint_lightglue.seq2048``: ``SuperPointDetector.from_file(
+     max_features=2048, min_response=5e-4, min_feature_distance=4)
+     .detect`` on 1024x768 ``uint8`` frames, where kernel 6 takes its list
+     path, each detection's uv and num held bit for bit to the plain
+     suppression (``ops/detect.py::suppress_candidates``) on the ranked
+     scores of the heatmap that detection computed, kernel 6's launch
+     count set to 0 just before and read just after (one launch per
+     detection), its device time per launch and a detection's time.
   8. The parallel layer (``feature_tracker_tpu_torch/parallel``) and the
      SLAM back end, each sub-phase timed: (a) ``make_mesh()`` in this
      process (one rank, its own NCCL group): ``track_klt_sharded`` with
@@ -221,7 +230,8 @@ Phases (any failed check raises, so the exit code is non-zero):
      file under ``weights/`` is hashed before and after.
 Then one JSON line with the kernels of the paths (kernels 1, 3 and 4 also
 with their launches on the sharded paths, kernel 1 with those of phase
-10d, and with their launches in the demos; kernels 1, 2 and 5 with their
+10d, kernel 6 with those of phase 7e, and with their launches in the
+demos; kernels 1, 2 and 5 with their
 launches in phase 12's scripts), the card's name and power limit, and as
 the last line ``{"ok": true, "device": {...}}``.
 
@@ -300,6 +310,11 @@ DENSE_MARGIN, DENSE_MEAN, DENSE_P99, DENSE_FAR, DENSE_FAR_SHARE = (
 MODEL_CAP = 300                 # keypoints per frame (SuperPoint, DISK)
 DESC_TOL, SCORE_TOL = 1e-5, 1e-3
 LG_BENCH_N = 256                # bench.py's w_lightglue
+# 7e: SuperPoint at the superpoint_lightglue.seq2048 cell's inputs (frame
+# height and width, keypoints kept, detection threshold, radius in px).
+SP_CELL_H, SP_CELL_W, SP_CELL_CAP, SP_CELL_RESPONSE, SP_CELL_RADIUS = (
+    768, 1024, 2048, 5e-4, 4)
+SP_CELL_FRAMES = 3
 # CoTracker: the training shape of metrics.json, then a longer, larger
 # clip; (frames, height, width, queries). The texture moves COT_STEP px
 # per frame. Each iteration is held from the CPU's positions; the whole
@@ -1838,10 +1853,78 @@ def cotracker_clip(t, h, w, n, seed=0):
     return video[..., None].astype(np.float32), queries
 
 
+def superpoint_cell_phase(dev, card):
+    """Phase 7e (see the module docstring): SuperPoint's selection at the
+    ``superpoint_lightglue.seq2048`` cell's inputs, kernel 6's list path,
+    held bit for bit to the plain suppression on the ranked scores of the
+    heatmap each detection computed. Returns kernel 6's launches over the
+    detections."""
+    from synthetic import Texture
+
+    from feature_tracker_tpu_torch.models.superpoint import (
+        KEYPOINT_BORDER,
+        MAX_CANDIDATES,
+        SuperPointDetector,
+    )
+    from feature_tracker_tpu_torch.ops import cuda_detect, detect
+
+    t_phase = time.perf_counter()
+    shape = (SP_CELL_H, SP_CELL_W)
+    check(cuda_detect.grid_layout(shape, cuda_detect.conflict_threshold(
+        SP_CELL_RADIUS)) is None, "7e: kernel 6 would take its grid, not "
+          "its list path")
+    det = SuperPointDetector.from_file(
+        max_features=SP_CELL_CAP, min_response=SP_CELL_RESPONSE,
+        min_feature_distance=SP_CELL_RADIUS, device=dev)
+    frames = [np.clip(np.round(Texture(300 + i, n_waves=16, min_period=5.0,
+                                       max_period=30.0).render(*shape)),
+                      0, 255).astype(np.uint8)
+              for i in range(SP_CELL_FRAMES)]
+    # The heatmap each detection computes, as the model returns it.
+    heats = []
+    hook = det.model.register_forward_hook(
+        lambda mod, inp, out: heats.append(out[0][0].clone()))
+    wrapper = cuda_detect.suppress_candidates_cuda
+    wrapper.launches = 0
+    got = [det.detect(f) for f in frames]
+    launches = wrapper.launches
+    hook.remove()
+    check(launches == len(frames), f"7e: {launches} launches of kernel 6 "
+          f"in {len(frames)} SuperPoint detections")
+    kept, valid = [], []
+    with torch.inference_mode():
+        for i, ((uv, _, num), heat) in enumerate(zip(got, heats)):
+            scores, idx = detect.ranked_scores(
+                heat, SP_CELL_RESPONSE, KEYPOINT_BORDER, MAX_CANDIDATES)
+            want_uv, want_num = detect.suppress_candidates(
+                scores, idx, shape, SP_CELL_CAP, SP_CELL_RADIUS)
+            check(torch.equal(uv, want_uv) and int(num) == int(want_num),
+                  f"7e frame {i}: kernel 6 kept {int(num)}, the plain "
+                  f"path {int(want_num)}; uv equal: "
+                  f"{torch.equal(uv, want_uv)}")
+            kept.append(int(num))
+            valid.append(int((scores > -torch.inf).sum()))
+    check(min(kept) > SP_CELL_CAP // 2, f"7e: only {kept} keypoints kept")
+    args = (scores, idx, shape, SP_CELL_CAP, SP_CELL_RADIUS)
+    k_ms = queued_ms(lambda: wrapper(*args))
+    k_dev = device_ms(lambda: wrapper(*args), "detect_suppress_kernel", k_ms)
+    ms = cuda_ms(lambda: det.detect(frames[0]), repeats=10)
+    path_line(f"superpoint detect {SP_CELL_W}x{SP_CELL_H} max_features="
+              f"{SP_CELL_CAP} radius {SP_CELL_RADIUS} (seq2048's inputs)",
+              ms, card, f"; kept {kept} of {valid} ranked candidates, the "
+              f"plain path's bits; kernel 6 list path {launches} launches "
+              f"in {len(frames)} detections, {k_dev * 1e3:.2f} us device "
+              "time per launch (profiler)", repeats=10)
+    stage_done("7e (SuperPoint at seq2048's inputs)", t_phase)
+    return launches
+
+
 def model_paths(dev, card):
     """Phase 7 (see the module docstring): SuperPoint and DISK into
-    LightGlue on the headline pair, bench's LightGlue shape and CoTracker,
-    each on the card against the CPU, timed and profiled."""
+    LightGlue on the headline pair, bench's LightGlue shape, CoTracker and
+    SuperPoint at the seq2048 cell's inputs, each on the card against the
+    CPU or the plain path, timed and profiled. Returns kernel 6's launches
+    in 7e."""
     from synthetic import translated_pair
 
     from feature_tracker_tpu_torch.core.status import TrackStatus
@@ -2017,6 +2100,7 @@ def model_paths(dev, card):
                   f"(zero motion {float(still):.4f})", repeats=10)
         profile_window(label, lambda: tracker(video_d, queries_d), calls=2)
     stage_done("7d (CoTracker)", t_phase)
+    return superpoint_cell_phase(dev, card)
 
 
 def ba_spread(problem, opts, device):
@@ -4493,7 +4577,8 @@ def main() -> int:
                 "ms": k_dev, "plain_ms": k_plain, "bound_ms": k_bound,
                 "bound_by": k_by, "library_ms": None,
             })
-    kernels.append(suppression_phase(dev, card, frames, detect_launches))
+    suppression = suppression_phase(dev, card, frames, detect_launches)
+    kernels.append(suppression)
     clock_line("after the KLT timings")
     print(f"[time] card: {card}")
 
@@ -4513,7 +4598,7 @@ def main() -> int:
     lookup.update(cotracker2_phases(dev, card))
     kernels.append(lookup)
     slice_paths(dev, card, frames)
-    model_paths(dev, card)
+    suppression["superpoint_launches"] = model_paths(dev, card)
     sharded = parallel_paths(dev, card, rp, cp, uv, opts)
     train_paths(dev, card, weights_before)
     kernels[0]["pretrain_launches"] = pretrain_paths(dev, card,

@@ -29,6 +29,7 @@ from feature_tracker_tpu_torch.models.lightglue import (
     fused_match_list,
     mutual_argmax_matches,
 )
+from feature_tracker_tpu_torch.utils.profiling import span
 
 
 class NNMatcherModelType(enum.Enum):
@@ -148,39 +149,44 @@ class NNFeatureMatcher:
               mask_cur=None):
         """Full Match() contract. Returns (matched_uv ``[N,2]``, status
         ``[N]`` int8). Argument order follows the reference: descriptors
-        first."""
-        scores = self.scores(ref_uv, ref_desc, cur_uv, cur_desc, mask_ref,
-                             mask_cur)
-        with torch.inference_mode():
-            dev = scores.device
-            cur_uv = torch.as_tensor(cur_uv, dtype=torch.float32, device=dev)
-            n = scores.shape[0]
-            if self.options.model_type in _FUSED:
-                pairs, _ = fused_match_list(
-                    scores, self.options.min_valid_match_score,
-                    self.options.max_number_of_matches)
-                # Scatter the fused list back to per-ref-feature indices;
-                # the padding rows all land in the dropped slot n.
-                slot = torch.where(pairs[:, 0] >= 0, pairs[:, 0], n).long()
-                idx = torch.full((n + 1,), -1, dtype=torch.int32,
-                                 device=dev)
-                idx[slot] = pairs[:, 1]
-                idx = idx[:n]
-            else:
-                idx = mutual_argmax_matches(
-                    scores, self.options.min_valid_match_score)
+        first. One ``nn_matcher.match`` span; nothing is read back from
+        the device."""
+        with span("nn_matcher.match"):
+            scores = self.scores(ref_uv, ref_desc, cur_uv, cur_desc, mask_ref,
+                                 mask_cur)
+            with torch.inference_mode():
+                dev = scores.device
+                cur_uv = torch.as_tensor(cur_uv, dtype=torch.float32,
+                                         device=dev)
+                n = scores.shape[0]
+                if self.options.model_type in _FUSED:
+                    pairs, _ = fused_match_list(
+                        scores, self.options.min_valid_match_score,
+                        self.options.max_number_of_matches)
+                    # Scatter the fused list back to per-ref-feature
+                    # indices; the padding rows all land in the dropped
+                    # slot n.
+                    slot = torch.where(pairs[:, 0] >= 0, pairs[:, 0],
+                                       n).long()
+                    idx = torch.full((n + 1,), -1, dtype=torch.int32,
+                                     device=dev)
+                    idx[slot] = pairs[:, 1]
+                    idx = idx[:n]
+                else:
+                    idx = mutual_argmax_matches(
+                        scores, self.options.min_valid_match_score)
 
-            found = idx >= 0
-            safe = torch.clamp(idx, 0, cur_uv.shape[0] - 1).long()
-            # Unmatched entries keep the initial copy of the current
-            # positions when the shapes line up, else zeros.
-            if cur_uv.shape[0] == n:
-                default_uv = cur_uv
-            else:
-                default_uv = torch.zeros((n, 2), device=dev)
-            matched_uv = torch.where(found[:, None], cur_uv[safe],
-                                     default_uv)
-            status = torch.where(
-                found, torch.full_like(idx, int(TrackStatus.TRACKED)),
-                torch.full_like(idx, int(TrackStatus.LARGE_RESIDUAL)))
-            return matched_uv, status.to(STATUS_DTYPE)
+                found = idx >= 0
+                safe = torch.clamp(idx, 0, cur_uv.shape[0] - 1).long()
+                # Unmatched entries keep the initial copy of the current
+                # positions when the shapes line up, else zeros.
+                if cur_uv.shape[0] == n:
+                    default_uv = cur_uv
+                else:
+                    default_uv = torch.zeros((n, 2), device=dev)
+                matched_uv = torch.where(found[:, None], cur_uv[safe],
+                                         default_uv)
+                status = torch.where(
+                    found, torch.full_like(idx, int(TrackStatus.TRACKED)),
+                    torch.full_like(idx, int(TrackStatus.LARGE_RESIDUAL)))
+                return matched_uv, status.to(STATUS_DTYPE)

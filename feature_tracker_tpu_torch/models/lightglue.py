@@ -41,6 +41,7 @@ from feature_tracker_tpu_torch.models.layers import (
     gelu,
 )
 from feature_tracker_tpu_torch.models.raft import full_float32
+from feature_tracker_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e9
 
@@ -176,7 +177,10 @@ class LightGlue(nn.Module):
     (masked entries are NEG_INF) plus the per-side raw matchability logits
     ``[N]``, ``[M]``. Inputs may be numpy arrays or tensors; the model runs
     on ``device`` (default ``"cuda"``) in ``eval()`` mode, under
-    ``torch.inference_mode`` unless ``grad=True`` (the trainer's form)."""
+    ``torch.inference_mode`` unless ``grad=True`` (the trainer's form),
+    and reads nothing back from the device. Spans ``lightglue.forward``
+    (the call), ``lightglue.layer`` (each self- and cross-attention layer)
+    and ``lightglue.assign`` (the assignment head)."""
 
     def __init__(self, cfg: LightGlueConfig = LightGlueConfig(),
                  device="cuda"):
@@ -197,7 +201,8 @@ class LightGlue(nn.Module):
 
     def forward(self, kpts_ref, desc_ref, mask_ref, kpts_cur, desc_cur,
                 mask_cur, image_hw=None, *, grad: bool = False):
-        with torch.inference_mode(not grad), full_float32():
+        with span("lightglue.forward"), torch.inference_mode(not grad), \
+                full_float32():
             return self._forward(kpts_ref, desc_ref, mask_ref, kpts_cur,
                                  desc_cur, mask_cur, image_hw)
 
@@ -218,33 +223,35 @@ class LightGlue(nn.Module):
         x1 = self.input_proj(tensor(desc_cur))
 
         for i in range(c.depth):
-            su = getattr(self, f"self_{i}")
-            x0 = su(x0, cos0, sin0, mask_ref)
-            x1 = su(x1, cos1, sin1, mask_cur)
-            x0, x1 = getattr(self, f"cross_{i}")(x0, x1, mask_ref, mask_cur)
-
+            with span("lightglue.layer"):
+                su = getattr(self, f"self_{i}")
+                x0 = su(x0, cos0, sin0, mask_ref)
+                x1 = su(x1, cos1, sin1, mask_cur)
+                x0, x1 = getattr(self, f"cross_{i}")(x0, x1, mask_ref,
+                                                     mask_cur)
         # Assignment head.
-        f0 = self.final_proj(x0).float()
-        f1 = self.final_proj(x1).float()
-        pair = mask_ref[:, None] & mask_cur[None, :]
-        sim = torch.einsum("nd,md->nm", f0, f1)
-        sim = sim / torch.sqrt(torch.full((), float(c.model_dim),
-                                          device=sim.device))
-        sim = torch.where(pair, sim, NEG_INF)
+        with span("lightglue.assign"):
+            f0 = self.final_proj(x0).float()
+            f1 = self.final_proj(x1).float()
+            pair = mask_ref[:, None] & mask_cur[None, :]
+            sim = torch.einsum("nd,md->nm", f0, f1)
+            sim = sim / torch.sqrt(torch.full((), float(c.model_dim),
+                                              device=sim.device))
+            sim = torch.where(pair, sim, NEG_INF)
 
-        logit0 = self.matchability(x0)[:, 0]
-        logit1 = self.matchability(x1)[:, 0]
-        z0 = torch.where(mask_ref, torch.nn.functional.logsigmoid(logit0),
-                         NEG_INF)
-        z1 = torch.where(mask_cur, torch.nn.functional.logsigmoid(logit1),
-                         NEG_INF)
+            logit0 = self.matchability(x0)[:, 0]
+            logit1 = self.matchability(x1)[:, 0]
+            z0 = torch.where(mask_ref,
+                             torch.nn.functional.logsigmoid(logit0), NEG_INF)
+            z1 = torch.where(mask_cur,
+                             torch.nn.functional.logsigmoid(logit1), NEG_INF)
 
-        # Dual-softmax log partial assignment.
-        lsm_row = torch.log_softmax(sim, dim=1)
-        lsm_col = torch.log_softmax(sim, dim=0)
-        scores = lsm_row + lsm_col + z0[:, None] + z1[None, :]
-        scores = torch.where(pair, scores, NEG_INF)
-        return scores, logit0, logit1
+            # Dual-softmax log partial assignment.
+            lsm_row = torch.log_softmax(sim, dim=1)
+            lsm_col = torch.log_softmax(sim, dim=0)
+            scores = lsm_row + lsm_col + z0[:, None] + z1[None, :]
+            scores = torch.where(pair, scores, NEG_INF)
+            return scores, logit0, logit1
 
 
 def mutual_argmax_matches(scores, min_score):

@@ -11,7 +11,9 @@ of ``feature_tracker_tpu/models/superpoint.py``.
  - descriptor head: conv3x3(256) -> conv1x1(D); bilinear sampling at
    keypoints + L2 normalization
  - keypoints: 3x3 local max + response threshold + top-K (ties to the lower
-   flat index, as ``jax.lax.top_k``) with greedy min-distance suppression.
+   flat index, as ``jax.lax.top_k``) with greedy min-distance suppression,
+   the ranking and suppression of the classic detector (``ops/detect.py``;
+   on the card kernel 6).
 
 Images and maps are ``[B, H, W, C]`` as in the Flax model. Submodules carry
 the Flax model's automatic names in call order (``Conv_0`` .. ``Conv_7``
@@ -30,7 +32,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from feature_tracker_tpu_torch.core.config import HarrisOptions
 from feature_tracker_tpu_torch.core.device import resolve_device
 from feature_tracker_tpu_torch.models.layers import (
     divide,
@@ -39,6 +40,8 @@ from feature_tracker_tpu_torch.models.layers import (
 )
 from feature_tracker_tpu_torch.models.raft import BatchNorm, Conv, full_float32
 from feature_tracker_tpu_torch.ops import detect as _detect
+from feature_tracker_tpu_torch.ops.cuda_detect import suppress_candidates_cuda
+from feature_tracker_tpu_torch.utils.profiling import count_on_device, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,45 +151,26 @@ def _bilinear_normalized(desc_map, pos):
     return d / torch.clamp(norm, min=1e-12)
 
 
+# select_keypoints' candidates: none within this many pixels of an edge,
+# and at most this many ranked before the suppression.
+KEYPOINT_BORDER = 4
+MAX_CANDIDATES = 4096
+
+
 def select_keypoints(heatmap, max_num: int, min_response,
                      min_distance: int = 4):
     """Heatmap ``[H, W]`` -> (uv ``[max_num, 2]``, num) with 3x3 NMS,
-    threshold, top-K and greedy radius suppression (mirrors the classic
-    detector's contract; padded entries are (-1, -1), ``num`` an int32
-    0-dim tensor)."""
-    opts = HarrisOptions(min_feature_distance=min_distance,
-                         min_valid_response=0.0, max_candidates=4096)
-    dev = heatmap.device
-    h, w = heatmap.shape
-    # max_pool2d pads with -inf, as reduce_window with a -inf init does.
-    local_max = F.max_pool2d(heatmap[None, None], 3, stride=1,
-                             padding=1)[0, 0]
-    rows = torch.arange(h, device=dev)[:, None]
-    cols = torch.arange(w, device=dev)[None, :]
-    border = 4
-    inb = ((rows >= border) & (rows < h - border)
-           & (cols >= border) & (cols < w - border))
-    cand = (heatmap >= local_max) & (heatmap > min_response) & inb
-    scores = torch.where(cand, heatmap, torch.full_like(heatmap, -torch.inf))
-    k = min(opts.max_candidates, h * w)
-    # lax.top_k's order: descending, ties to the lower index.
-    top_scores, flat_idx = torch.sort(scores.reshape(-1), descending=True,
-                                      stable=True)
-    top_scores, flat_idx = top_scores[:k], flat_idx[:k]
-    # Valid candidates form a prefix; the greedy pass needs only that.
-    n_valid = int((top_scores > -torch.inf).sum())
-    cy = (flat_idx[:n_valid] // w).to(torch.float32)
-    cx = (flat_idx[:n_valid] % w).to(torch.float32)
-    d2 = (cx[:, None] - cx[None, :]) ** 2 + (cy[:, None] - cy[None, :]) ** 2
-    conflict = d2 < float(min_distance) ** 2
-    keep = _detect.greedy_suppression(
-        torch.ones(n_valid, dtype=torch.bool, device=dev), conflict)
-    sel = torch.nonzero(keep).reshape(-1)[:max_num]
-    uv = torch.full((max_num, 2), -1.0, dtype=torch.float32, device=dev)
-    uv[:sel.shape[0], 0] = cx[sel]
-    uv[:sel.shape[0], 1] = cy[sel]
-    num = torch.tensor(sel.shape[0], dtype=torch.int32, device=dev)
-    return uv, num
+    threshold, top-K and greedy radius suppression (the classic detector's
+    contract and code: ``ops/detect.py::ranked_scores``, then
+    ``ops/cuda_detect.py::suppress_candidates_cuda``, on the card one launch
+    of kernel 6 with no read of the device, on the CPU the plain greedy
+    suppression; padded entries are (-1, -1), ``num`` an int32 0-dim
+    tensor)."""
+    top_scores, flat_idx = _detect.ranked_scores(
+        heatmap, min_response, KEYPOINT_BORDER, MAX_CANDIDATES)
+    return suppress_candidates_cuda(top_scores, flat_idx,
+                                    tuple(heatmap.shape), max_num,
+                                    min_distance)
 
 
 class SuperPointDetector:
@@ -232,13 +216,23 @@ class SuperPointDetector:
         return cls(load_superpoint_npz(path, cfg), **kw)
 
     def detect(self, image):
-        """image: ``[H, W]`` 0..255. Returns (uv ``[K,2]``, descriptors
-        ``[K,D]``, num)."""
-        with torch.inference_mode(), full_float32():
-            img = torch.as_tensor(image, dtype=torch.float32,
-                                  device=self.model.device)
-            heat, desc = self.model(img[None, :, :, None])
-            uv, num = select_keypoints(heat[0], self.max_features,
-                                       self.min_response,
-                                       self.min_feature_distance)
-            return uv, sample_descriptors(desc[0], uv), num
+        """image: ``[H, W]`` 0..255 (a host ``uint8`` frame crosses to the
+        model's device as it is and is made float32 there). Returns (uv
+        ``[K,2]``, descriptors ``[K,D]``, num). On the card nothing is read
+        back. Spans ``superpoint.detect`` (the call), ``superpoint.encode``
+        (the network), ``superpoint.select`` (kernel 6's ``detect.suppress``
+        inside it), ``superpoint.describe``; counter ``superpoint.keypoints``
+        (``num``, added on the device while tracing)."""
+        with span("superpoint.detect"), torch.inference_mode(), \
+                full_float32():
+            img = torch.as_tensor(image, device=self.model.device).to(
+                torch.float32)
+            with span("superpoint.encode"):
+                heat, desc = self.model(img[None, :, :, None])
+            with span("superpoint.select"):
+                uv, num = select_keypoints(heat[0], self.max_features,
+                                           self.min_response,
+                                           self.min_feature_distance)
+            count_on_device("superpoint.keypoints", num)
+            with span("superpoint.describe"):
+                return uv, sample_descriptors(desc[0], uv), num

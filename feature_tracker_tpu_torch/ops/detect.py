@@ -137,27 +137,35 @@ def _detect(img, max_num: int, opts: HarrisOptions, device):
 
 
 def ranked_candidates(img: torch.Tensor, opts: HarrisOptions):
-    """Steps 1-4 on a float32 ``[H, W]`` image: the scores of the top
-    ``k = min(max_candidates, H*W)`` pixels in descending order, ties to
-    the lower flat index, -inf where a pixel is no candidate (so the
-    valid ones are a prefix), and their flat indices (int64)."""
-    dev = img.device
-    h, w = img.shape
+    """Steps 1-4 on a float32 ``[H, W]`` image: the Shi-Tomasi response
+    ranked by :func:`ranked_scores`, with a border that gives every
+    detected feature full bilinear support."""
     resp = shi_tomasi_response(img, opts.window_half_size)
+    return ranked_scores(resp, opts.min_valid_response,
+                         opts.window_half_size + 2, opts.max_candidates)
 
-    # Exclude a border so every detected feature has full bilinear support.
-    border = opts.window_half_size + 2
+
+def ranked_scores(score: torch.Tensor, min_response, border: int,
+                  max_candidates: int):
+    """Steps 3-4 on a float32 score map ``[H, W]`` (a corner response, a
+    keypoint heatmap): the scores of the top ``k = min(max_candidates,
+    H*W)`` pixels in descending order, ties to the lower flat index, -inf
+    where a pixel is no candidate (not a 3x3 maximum, not above
+    ``min_response``, or within ``border`` pixels of an edge; so the valid
+    ones are a prefix), and their flat indices (int64)."""
+    dev = score.device
+    h, w = score.shape
     rows = torch.arange(h, device=dev)[:, None]
     cols = torch.arange(w, device=dev)[None, :]
     in_border = ((rows >= border) & (rows < h - border)
                  & (cols >= border) & (cols < w - border))
 
     # 3x3 local maxima (max_pool2d pads with -inf, as reduce_window does).
-    local_max = F.max_pool2d(resp[None, None], 3, stride=1, padding=1)[0, 0]
-    cand = (resp >= local_max) & (resp > opts.min_valid_response) & in_border
-    scores = torch.where(cand, resp, torch.full_like(resp, -torch.inf))
+    local_max = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
+    cand = (score >= local_max) & (score > min_response) & in_border
+    scores = torch.where(cand, score, torch.full_like(score, -torch.inf))
 
-    k = min(opts.max_candidates, h * w)
+    k = min(max_candidates, h * w)
     top_scores, flat_idx = torch.sort(scores.reshape(-1), descending=True,
                                       stable=True)
     return top_scores[:k], flat_idx[:k]

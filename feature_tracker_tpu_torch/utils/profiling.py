@@ -20,7 +20,9 @@ records and counts what it dropped; while a profiler records, each span is
 also a ``record_function`` range of the kineto trace, on the kernels'
 clock. A span never synchronises the device. Counting kernels take a row
 of a device ring (:func:`kernel_counters`; none while a profiler records)
-that :func:`snapshot` copies out once. The tracer keeps one stack of open spans: it traces one thread.
+that :func:`snapshot` copies out once; so does a count held in a device
+tensor (:func:`count_on_device`). The tracer keeps one stack of open
+spans: it traces one thread.
 """
 
 from __future__ import annotations
@@ -175,16 +177,18 @@ class Tracer:
         self.count_call[k] = self.call
         self.count_n[k] = n
 
-    def kernel_counters(self, device, names) -> int:
-        """The address of the next row of ``device``'s ring, two int64 that
-        a kernel adds to; the row counts toward ``names`` (two counter
-        names) in the current call."""
+    def _ring_row(self, device, names):
+        """``(table, k)``: the next row ``k`` of ``device``'s ring
+        ``table``, which counts toward ``names`` (two counter names) in the
+        current call."""
         ring = self.rings.get(device)
         if ring is None:
+            # A normal tensor, which inference mode's calls may write to.
+            with torch.inference_mode(False):
+                table = torch.zeros((self.kernel_rows, 2), dtype=torch.int64,
+                                    device=device)
             ring = self.rings[device] = [
-                torch.zeros((self.kernel_rows, 2), dtype=torch.int64,
-                            device=device),
-                0, _ring("q", self.kernel_rows),
+                table, 0, _ring("q", self.kernel_rows),
                 _ring("i", 2 * self.kernel_rows)]
         table, used = ring[0], ring[1]
         k = used % self.kernel_rows
@@ -195,7 +199,22 @@ class Tracer:
         ring[2][k] = self.call
         ring[3][2 * k] = self.name_id(names[0])
         ring[3][2 * k + 1] = self.name_id(names[1])
+        return table, k
+
+    def kernel_counters(self, device, names) -> int:
+        """The address of the next row of ``device``'s ring, two int64 that
+        a kernel adds to; the row counts toward ``names`` (two counter
+        names) in the current call."""
+        table, k = self._ring_row(device, names)
         return table.data_ptr() + 16 * k
+
+    def count_on_device(self, name: str, value: torch.Tensor) -> None:
+        """Write the 0-dim integer tensor ``value`` into the first column of
+        the next row of its device's ring, as counter ``name`` of the
+        current call (the second column stays 0): one copy on the device,
+        no read."""
+        table, k = self._ring_row(value.device, (name, name))
+        table[k, 0].copy_(value)
 
     def snapshot(self) -> "Snapshot":
         held = min(self.seq, self.capacity)
@@ -373,6 +392,16 @@ def kernel_counters(device, names):
     if _on and not _autograd_profiler._is_profiler_enabled:
         return _TRACER.kernel_counters(device, names)
     return None
+
+
+def count_on_device(name: str, value: torch.Tensor) -> None:
+    """While tracing and no profiler records, add the 0-dim integer tensor
+    ``value`` to counter ``name`` of the current call without reading it:
+    it is copied into a row of its device's ring, which :func:`snapshot`
+    copies out once. Nothing otherwise, so that a profiled call makes the
+    launches of an untraced one."""
+    if _on and not _autograd_profiler._is_profiler_enabled:
+        _TRACER.count_on_device(name, value)
 
 
 def snapshot() -> Snapshot:

@@ -1991,3 +1991,47 @@ def test_card_detection_reads_nothing_back(card):
     assert snap.counter("detect.suppression_rounds") == 0
     assert snap.counters[cuda_detect.COUNTER] == {0: 1, 1: 1, 2: 1}
     assert torch.equal(uv, want[0]) and int(num) == int(want[1]) == 300
+
+
+def test_superpoint_selection_on_kernel_6_list_path_is_the_plain_path(card):
+    """SuperPoint's selection at the benchmark's size (a 1024x768 heatmap of
+    the shipped model, radius 4, 2048 kept) runs kernel 6's list path and
+    gives the plain path's bits; a whole detection reads nothing back and
+    counts its keypoints on the device."""
+    from feature_tracker_tpu_torch.models.superpoint import (
+        KEYPOINT_BORDER,
+        MAX_CANDIDATES,
+        SuperPointDetector,
+        select_keypoints,
+    )
+
+    det = SuperPointDetector.from_file(device=card, max_features=2048,
+                                       min_response=0.0005)
+    frame = np.clip(np.round(Texture(0, n_waves=16, min_period=5.0,
+                                     max_period=30.0).render(768, 1024)),
+                    0, 255).astype(np.uint8)
+    with torch.inference_mode():
+        heat = det.model(torch.as_tensor(frame, device=card).float()[
+            None, :, :, None])[0][0]
+    scores, idx = detect.ranked_scores(heat, 0.0005, KEYPOINT_BORDER,
+                                       MAX_CANDIDATES)
+    assert cuda_detect.grid_layout((768, 1024),
+                                   cuda_detect.conflict_threshold(4)) is None
+    want_uv, want_num = detect.suppress_candidates(scores, idx, (768, 1024),
+                                                   2048, 4)
+    all_kept = int(detect.suppress_candidates(scores, idx, (768, 1024),
+                                              10 ** 4, 4)[1])
+    before = cuda_detect.suppress_candidates_cuda.launches
+    uv, num = select_keypoints(heat, 2048, 0.0005, 4)
+    assert cuda_detect.suppress_candidates_cuda.launches == before + 1
+    assert torch.equal(uv, want_uv) and int(num) == int(want_num)
+    assert int(num) == min(2048, all_kept) > 1000
+    torch.cuda.synchronize()
+    profiling.enable()
+    for _ in range(2):
+        got_uv, _, got_num = det.detect(frame)
+    snap = profiling.snapshot()
+    assert snap.counter("host_syncs") == 0
+    assert snap.counters["superpoint.keypoints"] == {0: int(num),
+                                                     1: int(num)}
+    assert torch.equal(got_uv, uv) and int(got_num) == int(num)
